@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the DP-MLD framework, for one NVIDIA H100.
+
+Mirrors the JAX package ``eeg_multimodal_tpu`` module by module (same module
+names, same parameter tree) and holds against it in ``tests/test_torch_*.py``.
+It imports neither JAX nor the JAX package.
+
+- ``utils``  : device resolution (the card unless ``device="cpu"``) and seeds
+- ``data``   : stacked multimodal arrays, pairing, truncation, epoch batching
+- ``models`` : torch-semantics layers, BERT-base, the fusion model, and the
+               conversion of the JAX package's parameter tree
+- ``ops``    : the DP mechanism; ``ops.dp_fused`` holds the Triton kernels of
+               the fused DP block (forward and backward)
+- ``train``  : loss and metrics, Adam, the alternating-optimizer trainer
+
+Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,143 @@
+"""BERT-base encoder as plain functions on tensors, HF ``BertModel`` semantics.
+
+Port of the JAX package's ``models/bert.py``: word + absolute position +
+token-type embeddings with LayerNorm eps 1e-12, post-LN layers with an erf
+GELU FFN, the HF additive attention mask ``(1 - m) * finfo(f32).min``, and
+the tanh pooler. ``apply`` returns ``(sequence_output, pooled_output)`` as
+``BertModel(..., return_dict=False)`` does (ref: models.py:59-61).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dropout, layer_norm, linear
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    initializer_range: float = 0.02
+
+    # bert-base-uncased and bert-base-cased differ only in vocab size
+    @staticmethod
+    def for_coef(coef: str) -> "BertConfig":
+        if "cased" in coef and "uncased" not in coef:
+            return BertConfig(vocab_size=28996)
+        return BertConfig()
+
+
+def init(gen: torch.Generator, config: BertConfig, device):
+    """HF BERT init: normal(0, 0.02) weights, zero biases, unit LayerNorms."""
+    H, I = config.hidden_size, config.intermediate_size
+    std = config.initializer_range
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    def dense(fan_in, fan_out):
+        return {"kernel": normal((fan_in, fan_out)),
+                "bias": torch.zeros(fan_out, device=device)}
+
+    def ln():
+        return {"scale": torch.ones(H, device=device),
+                "bias": torch.zeros(H, device=device)}
+
+    params = {
+        "embeddings": {
+            "word": normal((config.vocab_size, H)),
+            "position": normal((config.max_position_embeddings, H)),
+            "token_type": normal((config.type_vocab_size, H)),
+            "ln": ln(),
+        },
+        "layers": [],
+        "pooler": dense(H, H),
+    }
+    for _ in range(config.num_layers):
+        params["layers"].append({
+            "attn": {"query": dense(H, H), "key": dense(H, H),
+                     "value": dense(H, H), "output": dense(H, H), "ln": ln()},
+            "ffn": {"intermediate": dense(H, I), "output": dense(I, H), "ln": ln()},
+        })
+    return params
+
+
+def _attention(q, k, v, attn_bias, attn_drop, gen):
+    """softmax(QK^T/sqrt(D) + bias) V over (B, H, S, D).
+
+    The one dispatch point of self-attention. At the flagship's truncated
+    S = 80 the JAX package also takes its einsum branch here (its Pallas
+    kernel dispatches only at S >= 512, S % 128 == 0); the Hopper attention
+    kernel of the 512-token path plugs in at this function.
+    """
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    probs = torch.softmax(scores + attn_bias, dim=-1)  # additive mask, HF-style
+    return torch.matmul(dropout(probs, attn_drop, gen), v)
+
+
+def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen):
+    B, S, H = x.shape
+    D = H // num_heads
+    # packed QKV: one (H, 3H) matmul instead of three (bert.py:124-148 there);
+    # the tree keeps the separate torch-shaped q/k/v entries
+    w = torch.cat([p["query"]["kernel"], p["key"]["kernel"], p["value"]["kernel"]], dim=1)
+    b = torch.cat([p["query"]["bias"], p["key"]["bias"], p["value"]["bias"]])
+    qkv = F.linear(x, w.t(), b)
+    q, k, v = (
+        qkv[..., i * H:(i + 1) * H].reshape(B, S, num_heads, D).transpose(1, 2)
+        for i in range(3)
+    )
+    ctx = _attention(q, k, v, attn_bias, attn_drop, gen)
+    return linear(p["output"], ctx.transpose(1, 2).reshape(B, S, H))
+
+
+def apply(
+    params,
+    input_ids,  # (B, S) int64
+    attention_mask,  # (B, S) {0,1}
+    config: BertConfig = BertConfig(),
+    gen: Optional[torch.Generator] = None,
+    token_type_ids=None,
+):
+    """Forward pass; returns ``(sequence_output, pooled_output)``. Dropout
+    draws from ``gen`` and is off when it is None."""
+    S = input_ids.shape[1]
+    emb = params["embeddings"]
+    x = emb["word"][input_ids] + emb["position"][:S][None, :, :]
+    if token_type_ids is None:
+        x = x + emb["token_type"][0][None, None, :]
+    else:
+        x = x + emb["token_type"][token_type_ids]
+    x = layer_norm(emb["ln"], x, config.layer_norm_eps)
+    x = dropout(x, config.hidden_dropout, gen)
+
+    # HF extended attention mask: (1 - m) * dtype_min added to the logits
+    neg = torch.finfo(torch.float32).min
+    attn_bias = (1.0 - attention_mask[:, None, None, :].to(torch.float32)) * neg
+
+    for layer in params["layers"]:
+        attn_out = _self_attention(
+            layer["attn"], x, attn_bias, config.num_heads,
+            config.attention_dropout, gen,
+        )
+        attn_out = dropout(attn_out, config.hidden_dropout, gen)
+        x = layer_norm(layer["attn"]["ln"], x + attn_out, config.layer_norm_eps)
+        h = F.gelu(linear(layer["ffn"]["intermediate"], x))  # erf GELU
+        h = dropout(linear(layer["ffn"]["output"], h), config.hidden_dropout, gen)
+        x = layer_norm(layer["ffn"]["ln"], x + h, config.layer_norm_eps)
+
+    pooled = torch.tanh(linear(params["pooler"], x[:, 0]))
+    return x, pooled

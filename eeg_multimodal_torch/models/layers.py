@@ -1,0 +1,178 @@
+"""Torch-semantics transformer primitives as plain functions on tensors.
+
+Port of the JAX package's ``models/layers.py``. Parameters are nested dicts
+of tensors with the JAX package's names and layouts: a linear ``kernel`` is
+stored (in, out) and applied as ``x @ kernel + bias``, so the JAX tree loads
+as it is (``models/convert.py``). All layouts are batch-first (B, S, E).
+Randomness (dropout) comes from an explicit ``torch.Generator``; ``None``
+turns it off.
+
+The reference builds its cross-attention block from ``nn.TransformerDecoder``
+(python/src/custom_models/models.py:44-45): post-LN, ReLU FFN of width 2048,
+dropout 0.1, key-padding masks that send masked scores to -inf.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.trees import tree_map
+
+FFN_DIM = 2048  # torch TransformerDecoderLayer default dim_feedforward
+P_DROP = 0.1  # torch default dropout
+
+
+# ---------------------------------------------------------------------------
+# Initializers (torch defaults in distribution)
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, bound, gen, device):
+    return (torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0) * bound
+
+
+def linear_init(gen, in_features: int, out_features: int, device):
+    """torch nn.Linear default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(in_features)
+    return {
+        "kernel": _uniform((in_features, out_features), bound, gen, device),
+        "bias": _uniform((out_features,), bound, gen, device),
+    }
+
+
+def layer_norm_init(dim: int, device):
+    return {"scale": torch.ones(dim, device=device),
+            "bias": torch.zeros(dim, device=device)}
+
+
+def xavier_uniform(gen, shape, device):
+    bound = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return _uniform(shape, bound, gen, device)
+
+
+def mha_init(gen, embed_dim: int, device):
+    """torch nn.MultiheadAttention init: xavier in_proj/out_proj, zero biases."""
+    return {
+        "in_proj_kernel": xavier_uniform(gen, (embed_dim, 3 * embed_dim), device),
+        "in_proj_bias": torch.zeros(3 * embed_dim, device=device),
+        "out_proj": {
+            "kernel": xavier_uniform(gen, (embed_dim, embed_dim), device),
+            "bias": torch.zeros(embed_dim, device=device),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward primitives
+# ---------------------------------------------------------------------------
+
+def linear(params, x):
+    return F.linear(x, params["kernel"].t(), params["bias"])
+
+
+def layer_norm(params, x, eps: float = 1e-5):
+    # torch LayerNorm: biased variance over the last dim
+    return F.layer_norm(x, x.shape[-1:], params["scale"], params["bias"], eps)
+
+
+def dropout(x, rate: float, gen: Optional[torch.Generator]):
+    """Inverted dropout (torch semantics). Identity when ``gen`` is None."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def multi_head_attention(
+    params,
+    query,  # (B, Sq, E)
+    key_value,  # (B, Sk, E)
+    num_heads: int,
+    key_padding_mask=None,  # (B, Sk) bool: True = ignore this key position
+    dropout_rate: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+):
+    """torch nn.MultiheadAttention forward (batch-first, need_weights=False);
+    masked keys get -inf scores (layers.py:136-138 of the JAX package)."""
+    B, Sq, E = query.shape
+    Sk = key_value.shape[1]
+    H = num_heads
+    D = E // H
+    w, b = params["in_proj_kernel"], params["in_proj_bias"]
+    q = F.linear(query, w[:, :E].t(), b[:E])
+    k = F.linear(key_value, w[:, E:2 * E].t(), b[E:2 * E])
+    v = F.linear(key_value, w[:, 2 * E:].t(), b[2 * E:])
+    q = q.reshape(B, Sq, H, D).transpose(1, 2)  # (B, H, Sq, D)
+    k = k.reshape(B, Sk, H, D).transpose(1, 2)
+    v = v.reshape(B, Sk, H, D).transpose(1, 2)
+
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(D)
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
+    attn = dropout(torch.softmax(scores, dim=-1), dropout_rate, gen)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Sq, E)
+    return linear(params["out_proj"], out)
+
+
+# ---------------------------------------------------------------------------
+# TransformerDecoderLayer (torch post-LN defaults)
+# ---------------------------------------------------------------------------
+
+def decoder_layer_init(gen, d_model: int, device):
+    return {
+        "self_attn": mha_init(gen, d_model, device),
+        "cross_attn": mha_init(gen, d_model, device),
+        "linear1": linear_init(gen, d_model, FFN_DIM, device),
+        "linear2": linear_init(gen, FFN_DIM, d_model, device),
+        "norm1": layer_norm_init(d_model, device),
+        "norm2": layer_norm_init(d_model, device),
+        "norm3": layer_norm_init(d_model, device),
+    }
+
+
+def decoder_layer(
+    params, tgt, memory, num_heads: int,
+    tgt_key_padding_mask=None, memory_key_padding_mask=None,
+    gen: Optional[torch.Generator] = None, dropout_rate: float = P_DROP,
+):
+    """torch nn.TransformerDecoderLayer (norm_first=False, relu)."""
+    x = tgt
+    sa = multi_head_attention(
+        params["self_attn"], x, x, num_heads,
+        key_padding_mask=tgt_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+    )
+    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen))
+    ca = multi_head_attention(
+        params["cross_attn"], x, memory, num_heads,
+        key_padding_mask=memory_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+    )
+    x = layer_norm(params["norm2"], x + dropout(ca, dropout_rate, gen))
+    h = dropout(torch.relu(linear(params["linear1"], x)), dropout_rate, gen)
+    h = linear(params["linear2"], h)
+    return layer_norm(params["norm3"], x + dropout(h, dropout_rate, gen))
+
+
+def decoder_init(gen, d_model: int, num_layers: int, device):
+    """torch nn.TransformerDecoder(layer, num_layers) deep-copies one layer,
+    so every layer starts identical (ref: models.py:45)."""
+    layer = decoder_layer_init(gen, d_model, device)
+    return {"layers": [tree_map(torch.clone, layer) for _ in range(num_layers)]}
+
+
+def decoder(
+    params, tgt, memory, num_heads: int,
+    tgt_key_padding_mask=None, memory_key_padding_mask=None,
+    gen: Optional[torch.Generator] = None, dropout_rate: float = P_DROP,
+):
+    x = tgt
+    for layer_params in params["layers"]:
+        x = decoder_layer(
+            layer_params, x, memory, num_heads,
+            tgt_key_padding_mask=tgt_key_padding_mask,
+            memory_key_padding_mask=memory_key_padding_mask,
+            gen=gen, dropout_rate=dropout_rate,
+        )
+    return x

@@ -1,0 +1,53 @@
+"""Loss and metrics matching the reference's numbers.
+
+Port of the JAX package's ``train/metrics.py``: ``cal_loss`` mirrors
+TrainAndTest.cal_loss (base_train.py:59-65), weight-aware so that a padded
+final batch reproduces DataLoader's drop_last=False batch mean; ``f1_binary``
+is sklearn's binary F1 (base_train.py:233) on the host, ``f1`` the same on
+the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def cross_entropy(logits, labels):
+    """Per-sample CE, torch F.cross_entropy semantics (the caller reduces)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels[:, None])[:, 0]
+
+
+def cal_loss(logits, labels, weight=None):
+    """(loss, accuracy, pred_label_id, label) as base_train.py:59-65."""
+    ce = cross_entropy(logits, labels)
+    pred = logits.argmax(dim=-1)
+    correct = (pred == labels).to(torch.float32)
+    if weight is None:
+        weight = torch.ones_like(ce)
+    denom = weight.sum().clamp_min(1.0)
+    return (ce * weight).sum() / denom, (correct * weight).sum() / denom, pred, labels
+
+
+def f1_binary(y_true, y_pred) -> float:
+    """sklearn f1_score(y_true, y_pred) with binary average, pos_label=1."""
+    y_true = np.asarray(y_true)
+    y_pred = np.asarray(y_pred)
+    tp = float(np.sum((y_true == 1) & (y_pred == 1)))
+    fp = float(np.sum((y_true == 0) & (y_pred == 1)))
+    fn = float(np.sum((y_true == 1) & (y_pred == 0)))
+    denom = 2 * tp + fp + fn
+    return 2 * tp / denom if denom > 0 else 0.0
+
+
+def f1(y_true, y_pred, weight=None):
+    """:func:`f1_binary` on the device, over the rows with weight > 0;
+    returns a 0-d f32 tensor (no host sync)."""
+    valid = torch.ones_like(y_true, dtype=torch.bool) if weight is None else weight > 0
+    t1 = (y_true == 1) & valid
+    p1 = (y_pred == 1) & valid
+    tp = (t1 & p1).sum().to(torch.float32)
+    fp = (~t1 & p1).sum().to(torch.float32)
+    fn = (t1 & ~p1).sum().to(torch.float32)
+    denom = 2 * tp + fp + fn
+    return torch.where(denom > 0, 2 * tp / denom.clamp_min(1.0), torch.zeros_like(denom))

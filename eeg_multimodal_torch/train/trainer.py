@@ -1,0 +1,184 @@
+"""The alternating two-optimizer DP-MLD trainer (the faithful f32 step).
+
+Port of the JAX package's ``train/trainer.py`` main path (reference
+semantics: base_train.py:167-255). Per batch:
+
+1. forward with hard=False, the gradient w.r.t. ``DP`` only, Adam on ``DP``;
+2. forward with hard=True, the gradient w.r.t. every other parameter, Adam.
+
+Then a stochastic eval epoch (hard=True, dropout off, DP noise on) and F1.
+PyTorch runs eagerly: an epoch is a Python loop over the batches. Phase 1
+marks only ``DP`` as requiring grad, so the encoders record no graph and
+their backward never runs (the JAX trainer gets the same from XLA's dead-code
+elimination). The two phases draw their own dropout and DP noise, one after
+the other, from the epoch's generator, as ``k1``/``k2`` do in the JAX step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict
+
+import torch
+
+from ..data.datasets import epoch_indices, gather_batch
+from ..models import fusion
+from ..ops.optim import Adam
+from ..utils.device import resolve_device
+from ..utils.seeding import DEFAULT_SEED, derive_seed, generator
+from ..utils.trees import tree_items, tree_map_with_path
+from . import metrics as M
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8  # ref: base_train.py:49
+    learning_rate: float = 1e-6  # ref: base_train.py:50
+    seed: int = DEFAULT_SEED  # ref: base_train.py:43
+
+
+def _is_model(path: str) -> bool:
+    return not fusion.dp_param_predicate(path)
+
+
+def _track(params, select):
+    """The tree with the ``select``ed leaves swapped for aliases that require
+    grad; returns (tree, aliases, the original leaves in the same order)."""
+    aliases, originals = [], []
+
+    def mark(path, t):
+        if not select(path):
+            return t
+        originals.append(t)
+        aliases.append(t.detach().requires_grad_())
+        return aliases[-1]
+
+    return tree_map_with_path(mark, params), aliases, originals
+
+
+class StepFunctions:
+    """Train and eval epochs for one (FusionConfig, TrainConfig) on one device."""
+
+    def __init__(self, fusion_cfg: fusion.FusionConfig, train_cfg: TrainConfig,
+                 device=None):
+        fusion.check_ported(fusion_cfg)
+        self.fusion_cfg = fusion_cfg
+        self.train_cfg = train_cfg
+        self.device = resolve_device(device)
+        self.dp_opt = Adam(train_cfg.learning_rate)  # the (1, F) DP leaf
+        self.model_opt = Adam(train_cfg.learning_rate)
+
+    def init_opt_states(self, params):
+        def leaves(select):
+            return [t for path, t in tree_items(params) if select(path)]
+
+        return self.dp_opt.init(leaves(fusion.dp_param_predicate)), self.model_opt.init(leaves(_is_model))
+
+    def loss_fn(self, params, batch, weight, epsilon, gen, hard, train, dp_noise=None):
+        logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen,
+                              train, dp_noise)
+        loss, acc, pred, _ = M.cal_loss(logits, batch["labels"], weight)
+        return loss, acc, pred, logits
+
+    def train_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
+                   dp_noise=(None, None), dropout=True):
+        """One faithful alternating step; updates ``params`` in place and
+        returns (dp_os, model_os, loss, acc) with phase 2's loss and accuracy.
+
+        Test-only keywords: ``dp_noise`` hands each phase its Laplace(0, 1)
+        DP noise, and ``dropout=False`` turns dropout off, so that the step
+        can be held against the JAX reference's.
+        """
+        # phase 1: DP only, hard=False (base_train.py:183-195)
+        p1, (dp_alias,), dp_leaves = _track(params, fusion.dp_param_predicate)
+        loss1 = self.loss_fn(p1, batch, weight, epsilon, gen, hard=False,
+                             train=dropout, dp_noise=dp_noise[0])[0]
+        g_dp = torch.autograd.grad(loss1, [dp_alias])
+        dp_os = self.dp_opt.update(dp_leaves, list(g_dp), dp_os)
+
+        # phase 2: every other parameter, hard=True (base_train.py:197-210)
+        p2, aliases, model_leaves = _track(params, _is_model)
+        loss, acc, _, _ = self.loss_fn(p2, batch, weight, epsilon, gen, hard=True,
+                                       train=dropout, dp_noise=dp_noise[1])
+        grads = torch.autograd.grad(loss, aliases)
+        model_os = self.model_opt.update(model_leaves, list(grads), model_os)
+        return dp_os, model_os, loss.detach(), acc.detach()
+
+    def train_epoch(self, params, dp_os, model_os, data, idx, weight, epsilon, gen):
+        """Every batch of ``idx`` once; returns (dp_os, model_os, mean loss,
+        mean accuracy), the means of batch means (base_train.py:239-242)
+        as device tensors."""
+        losses, accs = [], []
+        for b_idx, w in zip(idx, weight):
+            dp_os, model_os, loss, acc = self.train_step(
+                params, dp_os, model_os, gather_batch(data, b_idx), w, epsilon, gen)
+            losses.append(loss)
+            accs.append(acc)
+        return dp_os, model_os, torch.stack(losses).mean(), torch.stack(accs).mean()
+
+    @torch.no_grad()
+    def eval_epoch(self, params, data, idx, weight, epsilon, gen, dp_noise=None):
+        """Stochastic eval, one pass (n_eval = 1): hard=True, dropout off, DP
+        noise on. Returns (loss, acc, preds, labels, scores, weights), the
+        loss and accuracy as means of batch means, the per-row tensors
+        flattened over the batches, scores = logits[:, 1]. ``dp_noise``
+        (tests only) gives each batch's noise."""
+        losses, accs, preds, labels, scores = [], [], [], [], []
+        for i, (b_idx, w) in enumerate(zip(idx, weight)):
+            batch = gather_batch(data, b_idx)
+            loss, acc, pred, logits = self.loss_fn(
+                params, batch, w, epsilon, gen, hard=True, train=False,
+                dp_noise=None if dp_noise is None else dp_noise[i])
+            losses.append(loss)
+            accs.append(acc)
+            preds.append(pred)
+            labels.append(batch["labels"])
+            scores.append(logits[:, 1])
+        return (torch.stack(losses).mean(), torch.stack(accs).mean(), torch.cat(preds),
+                torch.cat(labels), torch.cat(scores), weight.reshape(-1))
+
+
+class Trainer:
+    """Epoch orchestration (base_train.py:175-235): shuffled train epoch,
+    stochastic eval epoch, F1. Runs on the card unless ``device="cpu"``."""
+
+    def __init__(self, fusion_cfg: fusion.FusionConfig,
+                 train_cfg: TrainConfig = TrainConfig(), params=None, device=None):
+        self.device = resolve_device(device)
+        self.fusion_cfg = fusion_cfg
+        self.train_cfg = train_cfg
+        if params is None:
+            params = fusion.init(fusion_cfg, derive_seed(train_cfg.seed, "init"),
+                                 self.device)
+        self.params = params
+        self.steps = StepFunctions(fusion_cfg, train_cfg, self.device)
+        self.dp_os, self.model_os = self.steps.init_opt_states(params)
+
+    def run_epoch(self, epoch: int, train_dev, test_dev, n_train: int,
+                  n_test: int, epsilon: float) -> Dict[str, Any]:
+        """One train+eval epoch. Updates the trainer's parameters and
+        optimizer states; returns the epoch's metric row."""
+        cfg = self.train_cfg
+        t0 = time.time()
+
+        def gen(name, device="cpu"):
+            return generator(derive_seed(cfg.seed, "epoch", epoch, name), device)
+
+        idx, w = epoch_indices(n_train, cfg.batch_size, True, gen("shuffle"), self.device)
+        self.dp_os, self.model_os, tr_loss, tr_acc = self.steps.train_epoch(
+            self.params, self.dp_os, self.model_os, train_dev, idx, w, epsilon,
+            gen("train", self.device))
+
+        # eval batches stay in order (the reference shuffles them; no metric
+        # depends on the order)
+        eidx, ew = epoch_indices(n_test, cfg.batch_size, False, device=self.device)
+        te_loss, te_acc, preds, labels, _, ws = self.steps.eval_epoch(
+            self.params, test_dev, eidx, ew, epsilon, gen("eval", self.device))
+        f1 = M.f1(labels, preds, ws)
+        # one host sync for the whole row
+        tr_loss, tr_acc, te_loss, te_acc, f1 = torch.stack(
+            [tr_loss, tr_acc, te_loss, te_acc, f1]).tolist()
+        return dict(
+            epoch=epoch + 1, train_loss=tr_loss, train_acc=tr_acc,
+            test_loss=te_loss, test_acc=te_acc, f1=f1, time_cost=time.time() - t0,
+        )

@@ -1,0 +1,36 @@
+"""Deterministic seeding with explicit ``torch.Generator``s.
+
+The reference seeds every run with 980616 (base_train.py:43). Where the JAX
+package threads ``jax.random`` keys and folds names into them, the port
+derives integer sub-seeds from the run's seed and a name path, and seeds one
+``torch.Generator`` per consumer (init, shuffle, train noise, eval noise), so
+adding randomness to one never perturbs another.
+"""
+from __future__ import annotations
+
+import torch
+
+DEFAULT_SEED = 980616  # ref: base_train.py:43
+
+
+def _stable_hash(name: str) -> int:
+    # Python's hash() is salted per process; FNV-1a is stable.
+    h = 2166136261
+    for b in name.encode():
+        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def derive_seed(seed: int, *names) -> int:
+    """Sub-seed of ``seed`` for a path of names (strings or ints)."""
+    h = seed & 0xFFFFFFFFFFFFFFFF
+    for name in names:
+        h = (h * 1099511628211 ^ _stable_hash(str(name))) & 0x7FFFFFFFFFFFFFFF
+    return h
+
+
+def generator(seed: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g

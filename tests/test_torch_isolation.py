@@ -1,0 +1,74 @@
+"""The PyTorch port stands alone: no JAX, no optax, nothing of the JAX
+package, and no quiet fallback to the CPU when the card is missing."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "eeg_multimodal_torch")
+FORBIDDEN = ("jax", "jaxlib", "optax", "eeg_multimodal_tpu")
+
+
+def package_files():
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(PKG)
+                  for f in files if f.endswith(".py"))
+
+
+def port_modules():
+    mods = []
+    for path in package_files():
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    return mods
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    bad = []
+    files = package_files() + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) >= 15
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = port_modules()
+    assert "eeg_multimodal_torch.ops.dp_fused" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device resolves to it")
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig, Trainer
+
+    cfg = fusion.config_for("ti", "lapacian_dropout")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StepFunctions(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fusion.init(cfg, seed=0)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
