@@ -3,40 +3,65 @@
 
     python3 chip_smoke.py
 
-Builds the port's Triton kernels (the fused DP block, forward and backward)
-from this checkout, holds each against its plain PyTorch version, drives the
-flagship TICA_LapDropout fused-DP trainer at full width (BERT-base, 3-layer
-cross-attention decoder, F = 2304, batch 8, S = 80) for two train+eval
-epochs, checks that the path went through both kernels, and times each
-kernel beside its bound. Exits non-zero on any failure; without a CUDA
-device it fails before printing any result. The last line is
-``{"ok": true, "device": {...}}``.
+Builds the port's kernels from this checkout: the Triton DP block (forward
+and backward) and, with nvcc, the CUDA C++ attention library (forward,
+backward, and the dropout-mask test hook). Holds each kernel against its
+plain PyTorch version. Then drives the two main paths at full width
+(BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8, f32):
+
+1. the flagship TICA_LapDropout fused-DP trainer at the truncated S = 80,
+   two train+eval epochs through ``Trainer.run_epoch``;
+2. the untruncated 512-token trainer through
+   ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
+   epochs, where every BERT self-attention runs the attention kernels;
+
+checks that each path went through its kernels, profiles one train step of
+each, and times every kernel beside its bound, its plain version and, where
+one exists, the one PyTorch call that computes the same function. Exits
+non-zero on any failure; without a CUDA device it fails before printing any
+result. The last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s and
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Approximate operations per element (Philox: 10 rounds of integer
-# multiplies and xors dominate; the float work is ~20)
+BF16_OPS_PER_S = 989e12
+# Approximate operations per element of the DP kernels (Philox: 10 rounds
+# of integer multiplies and xors dominate; the float work is ~20)
 OPS_PER_ELEM = {"dp_fwd": 80, "dp_bwd": 100}
-SOURCE = "eeg_multimodal_torch/ops/dp_fused.py"
+SOURCES = {"dp_fwd": "eeg_multimodal_torch/ops/dp_fused.py",
+           "dp_bwd": "eeg_multimodal_torch/ops/dp_fused.py",
+           "attn_fwd": "eeg_multimodal_torch/csrc/attention.cu",
+           "attn_bwd": "eeg_multimodal_torch/csrc/attention.cu"}
+ROUTES = {"dp_fwd": "triton", "dp_bwd": "triton", "attn_fwd": "cuda", "attn_bwd": "cuda"}
 REPLACES = {"dp_fwd": "eeg_multimodal_tpu/ops/dp_pallas.py:63",
-            "dp_bwd": "eeg_multimodal_tpu/ops/dp_pallas.py:76"}
+            "dp_bwd": "eeg_multimodal_tpu/ops/dp_pallas.py:76",
+            "attn_fwd": "eeg_multimodal_tpu/ops/attention.py:42",
+            "attn_bwd": "eeg_multimodal_tpu/ops/attention.py:71"}
 
 EPS = 0.1
 N_TRAIN, N_EVAL, VALID_TOKENS = 64, 32, 65
 LAPLACE_MAX = math.log(2 ** 23) + 1e-3
+ATTN_DROP = 0.1  # BERT's attention-prob dropout
+NEG = float(np.finfo(np.float32).min)
+# f32: the JAX attention tests' own tolerances (tests/test_attention_kernel.py)
+ATTN_TOL = {"f32_fwd": dict(rtol=1e-4, atol=1e-5), "f32_bwd": dict(rtol=2e-3, atol=1e-4),
+            "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 
 def fail(msg):
@@ -101,16 +126,143 @@ def forward_matmul_flops(B, S, H=768, layers=12, ffn=3072, dec_layers=3, dec_ffn
     return bert + dec + head
 
 
-def bound_ms(name, B, F):
+def _bound(nbytes, ops, ops_per_s):
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def dp_bound_ms(name, B, F):
     """Least time on the card: the larger of bytes over HBM rate (each input
     read once, each output written once) and operations over f32 rate."""
     if name == "dp_fwd":  # read f, dp, seed; write out
         nbytes = (2 * B * F + F) * 4 + 8
     else:  # read f, g, dp, seed; write df, dDP
         nbytes = (3 * B * F + 2 * F) * 4 + 8
-    ops = OPS_PER_ELEM[name] * B * F
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+    return _bound(nbytes, OPS_PER_ELEM[name] * B * F, F32_OPS_PER_S)
+
+
+def attn_bound_ms(name, B, H, S, D, itemsize):
+    """Least time on the card for attention at (B, H, S, D): bytes (q, k, v
+    read and out written, plus dO and out read and dq, dk, dv written for
+    the backward; the bias, the seed and the (2, B, H, S) row statistics)
+    against the matrix products' operations (4 B H S^2 D forward; 10 B H S^2
+    D backward, the scores recomputed) at the f32 CUDA-core or the bf16
+    tensor-core peak. The exponentials and the mask's integer work are not
+    counted."""
+    bhsd, small = B * H * S * D * itemsize, B * S * 4 + 8 + 2 * B * H * S * 4
+    if name == "attn_fwd":
+        nbytes, ops = 4 * bhsd + small, 4 * B * H * S * S * D
+    else:
+        nbytes, ops = 8 * bhsd + small, 10 * B * H * S * S * D
+    return _bound(nbytes, ops, F32_OPS_PER_S if itemsize == 4 else BF16_OPS_PER_S)
+
+
+def print_rows(rows, steps):
+    for row in rows:
+        print(f"  epoch {row['epoch']}: train loss {row['train_loss']:.4f} acc "
+              f"{row['train_acc']:.3f} | test loss {row['test_loss']:.4f} acc "
+              f"{row['test_acc']:.3f} f1 {row['f1']:.3f} | {row['time_cost']:.3f} s, "
+              f"{steps / row['time_cost']:.2f} steps/s (train+eval epoch)")
+
+
+def synth_rows(D, rng, n, seq=512):
+    """``n`` synthetic ti rows: VALID_TOKENS valid token ids padded to
+    ``seq``, a 512-d act embedding and a label, made with numpy."""
+    ids = rng.randint(0, 30000, (n, seq)).astype(np.int32)
+    mask = np.zeros((n, seq), np.int32)
+    mask[:, :VALID_TOKENS] = 1
+    return D.build_pairing(
+        "ti", rng.randint(0, 2, n).astype(np.int32),
+        eeg_txt={"input_ids": ids, "attention_mask": mask},
+        act_img=rng.randn(n, 512).astype(np.float32),
+    )
+
+
+def profile_step(torch, step, label, flops):
+    """Host step time, device busy time, idle share and the top kernels of
+    one steady-state train step; returns the device us by kernel name."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s); matmul "
+          f"work ~{flops / 1e9:.0f} GFLOP/step (2 forwards + 1 backward ~ 4 forwards) = "
+          f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak")
+    by_kernel = device_us(torch, step, n=3)
+    if not by_kernel:
+        print("  the profiler saw no device activity: device time not measured")
+        return by_kernel
+    busy_ms = sum(by_kernel.values()) / 1e3
+    print(f"  device busy {busy_ms:.2f} ms/step, idle share "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}; matmul work at "
+          f"{flops / (busy_ms * 1e-3) / 1e12:.2f} TFLOP/s of device time "
+          f"({flops / (busy_ms * 1e-3) / F32_OPS_PER_S:.3f} of the f32 peak); "
+          "top kernels (us/step):")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us:9.1f}  {name[:90]}")
+    return by_kernel
+
+
+def check_attention_kernels(torch, A, gen, dev):
+    """Attention kernels against their plain versions; returns the max
+    errors of the forward and the backward."""
+    err = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    cases = [(2, 3, 80, 64, torch.float32), (8, 12, 512, 64, torch.float32),
+             (1, 2, 512, 128, torch.float32), (8, 12, 512, 64, torch.bfloat16)]
+    for B, H, S, D, dtype in cases:
+        f32 = dtype == torch.float32
+        fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
+        bwd_tol = ATTN_TOL["f32_bwd" if f32 else "bf16"]
+        # packed (B, S, 3, H, D) projections: q, k, v are strided views, as
+        # the BERT path passes them
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        bias[0, S // 2 + 3:] = NEG  # a partly masked row
+        if B > 1:
+            bias[1] = NEG  # every key masked: the uniform softmax
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
+        for rate in (0.0, ATTN_DROP):
+            seed = torch.tensor([1000 + S + D], dtype=torch.int64, device=dev)
+            out, stats = A.attn_fwd(q, k, v, bias, seed, rate)
+            keep = A.attn_dropout_mask(seed, B, H, S, rate).bool() if rate else None
+            plain = A.attention_plain(q, k, v, bias, keep, rate)
+            torch.testing.assert_close(out.float(), plain.float(), **fwd_tol)
+            e_fwd = float((out.float() - plain.float()).abs().max())
+            grads = A.attn_bwd(q, k, v, bias, seed, rate, out, stats, dout)
+            plain_g = A.attention_bwd_plain(q, k, v, bias, keep, rate, dout)
+            e_bwd = 0.0
+            for name, g, pg in zip("qkv", grads, plain_g):
+                torch.testing.assert_close(g.float(), pg.float(), **bwd_tol,
+                                           msg=lambda m: f"d{name}: {m}")
+                e_bwd = max(e_bwd, float((g.float() - pg.float()).abs().max()))
+            if f32:
+                err["attn_fwd"] = max(err["attn_fwd"], e_fwd)
+                err["attn_bwd"] = max(err["attn_bwd"], e_bwd)
+            check(torch.equal(out, A.attn_fwd(q, k, v, bias, seed, rate)[0]),
+                  "the same seed gives another output")
+            if rate:
+                other = A.attn_fwd(q, k, v, bias, seed + 1, rate)[0]
+                check(not torch.equal(out, other), "two seeds give equal outputs")
+            if B > 1:
+                uniform = v[1].float().mean(dim=1, keepdim=True).expand(H, S, D)
+                torch.testing.assert_close(A.attn_fwd(q, k, v, bias, seed, 0.0)[0][1].float(),
+                                           uniform, **fwd_tol)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(A.fused_attention(*leaves, bias, seed, rate),
+                                       leaves, dout)
+            check(all(torch.equal(a, g) for a, g in zip(auto, grads)),
+                  "fused_attention's autograd gradients differ from attn_bwd's")
+            print(f"  {(B, H, S, D)} {str(dtype)[6:]} p={rate}: max|out - plain| {e_fwd:.3g}, "
+                  f"max|grad - plain| {e_bwd:.3g}")
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    frac = float(A.attn_dropout_mask(seed, 8, 12, 512, ATTN_DROP).float().mean())
+    print(f"  keep fraction over 8*12*512*512 = {8 * 12 * 512 * 512} draws: {frac:.6f}")
+    check(abs(frac - (1 - ATTN_DROP)) <= 1e-3, f"keep fraction {frac} off {1 - ATTN_DROP}")
+    return err
 
 
 def main():
@@ -122,12 +274,18 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.models import bert as bert_mod
     from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.ops import _build
+    from eeg_multimodal_torch.ops import attention as A
     from eeg_multimodal_torch.ops import dp as dp_ops
     from eeg_multimodal_torch.ops import dp_fused as K
+    from eeg_multimodal_torch.train.api import TrainAndTest
+    from eeg_multimodal_torch.train.checkpoint import load_torch_checkpoint, save_torch_checkpoint
+    from eeg_multimodal_torch.train.records import parse_legacy_records
     from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
     from eeg_multimodal_torch.utils.device import resolve_device
-    from eeg_multimodal_torch.utils.trees import tree_map, tree_size
+    from eeg_multimodal_torch.utils.trees import tree_items, tree_map, tree_size
 
     dev = resolve_device()
     kind = torch.cuda.get_device_name(0)
@@ -139,6 +297,22 @@ def main():
     print(smi, flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"dp_fwd": 0.0, "dp_bwd": 0.0}
+    all_kernels = K.KERNELS + A.KERNELS
+
+    phase("build the CUDA library (nvcc, sm_90a)")
+    t0 = time.time()
+    _, build_log, nvcc_s = _build.library()
+    print(f"  nvcc {nvcc_s:.1f} s, build + load {time.time() - t0:.1f} s")
+    entry = ""
+    for line in build_log.splitlines():  # ptxas -v: registers, shared memory, spills
+        if "Compiling entry function" in line:
+            name = re.search(r"attn_\w+?kernel", line)
+            targs = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            entry = (name.group(0) if name else "?") + (
+                f"<{'f32' if targs.group(1) == 'f' else 'bf16'}, {targs.group(2)}>"
+                if targs else "")
+        elif "Used" in line or re.search(r"[1-9]\d* bytes spill", line):
+            print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()[:100]}")
 
     def inputs(B, F):
         f = torch.randn(B, F, generator=gen, device=dev)
@@ -200,20 +374,14 @@ def main():
         check(torch.equal(gf, df) and torch.equal(gdp, ddp), "autograd.Function differs")
         print(f"  {(B, F)}: max err {err['dp_bwd']:.3g} (ties in row 0)")
 
-    phase("main path: TICA_LapDropout fused-DP trainer, full width")
+    phase("attention kernels against attention_plain / attention_bwd_plain")
+    t0 = time.time()
+    err.update(check_attention_kernels(torch, A, gen, dev))
+    print(f"  (checks {time.time() - t0:.1f} s)")
+
+    phase("main path 1: TICA_LapDropout fused-DP trainer, full width, S = 80")
     rng = np.random.RandomState(0)
-
-    def synth(n):
-        ids = rng.randint(0, 30000, (n, 512)).astype(np.int32)
-        mask = np.zeros((n, 512), np.int32)
-        mask[:, :VALID_TOKENS] = 1
-        return D.build_pairing(
-            "ti", rng.randint(0, 2, n).astype(np.int32),
-            eeg_txt={"input_ids": ids, "attention_mask": mask},
-            act_img=rng.randn(n, 512).astype(np.float32),
-        )
-
-    train, test = D.truncate_pair(synth(N_TRAIN), synth(N_EVAL))
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
     check(train.eeg_input.shape == (N_TRAIN, 80), f"S = {train.eeg_input.shape[1]}, not 80")
     fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
     tc = TrainConfig()
@@ -224,30 +392,27 @@ def main():
     dp0 = trainer.params["DP"].clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in K.KERNELS:
+    for k in all_kernels:
         k.launches = 0
     rows = []
     for epoch in range(2):
         rows.append(trainer.run_epoch(epoch, train_dev, test_dev, N_TRAIN, N_EVAL, EPS))
         if epoch == 0:
             dp_changed = not torch.equal(trainer.params["DP"], dp0)
-    launches = {k.name: k.launches for k in K.KERNELS}
+    launches_80 = {k.name: k.launches for k in all_kernels}
     steps = N_TRAIN // tc.batch_size
     eval_batches = N_EVAL // tc.batch_size
-    for row in rows:
-        print(f"  epoch {row['epoch']}: train loss {row['train_loss']:.4f} acc "
-              f"{row['train_acc']:.3f} | test loss {row['test_loss']:.4f} acc "
-              f"{row['test_acc']:.3f} f1 {row['f1']:.3f} | {row['time_cost']:.3f} s, "
-              f"{steps / row['time_cost']:.2f} steps/s (train+eval epoch)")
+    print_rows(rows, steps)
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {launches}")
+          f"launches {launches_80}")
     for row in rows:
         check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
               "non-finite loss")
         check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1]")
     check(dp_changed, "DP did not change in the first epoch")
-    want = {"dp_fwd": 2 * (2 * steps + eval_batches), "dp_bwd": 2 * 2 * steps}
-    check(launches == want, f"launches {launches}, expected {want}")
+    want = {"dp_fwd": 2 * (2 * steps + eval_batches), "dp_bwd": 2 * 2 * steps,
+            "attn_fwd": 0, "attn_bwd": 0}
+    check(launches_80 == want, f"launches {launches_80}, expected {want}")
 
     phase("reference check: card against CPU on 2 rows")
     fc_plain = dataclasses.replace(fc, fused_dp_kernel=False)
@@ -262,39 +427,101 @@ def main():
     print(f"  logits max|card - cpu| {ref_err:.3g}")
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-4)
 
-    phase("profile: steady-state train step (device time by kernel)")
-    step_batch = D.gather_batch(train_dev, torch.arange(tc.batch_size, device=dev))
-    step_w = torch.ones(tc.batch_size, device=dev)
-    states = [trainer.dp_os, trainer.model_os]
+    def step_fn(tr, data):
+        batch = D.gather_batch(data, torch.arange(tc.batch_size, device=dev))
+        w = torch.ones(tc.batch_size, device=dev)
+        states = [tr.dp_os, tr.model_os]
 
-    def train_step():
-        states[:] = trainer.steps.train_step(trainer.params, *states, step_batch, step_w,
-                                             EPS, gen)[:2]
+        def train_step():
+            states[:] = tr.steps.train_step(tr.params, *states, batch, w, EPS, gen)[:2]
+        return train_step
 
-    train_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        train_step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 10 * 1e3
-    flops = 4 * forward_matmul_flops(tc.batch_size, train.eeg_input.shape[1])
-    print(f"  train step {step_ms:.2f} ms ({1e3 / step_ms:.1f} steps/s); matmul work "
-          f"~{flops / 1e9:.0f} GFLOP/step (2 forwards + 1 backward ~ 4 forwards) = "
-          f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak")
-    by_kernel = device_us(torch, train_step, n=3)
-    busy_ms = sum(by_kernel.values()) / 1e3
+    phase("profile: steady-state train step at S = 80 (device time by kernel)")
+    by_kernel = profile_step(torch, step_fn(trainer, train_dev), "S = 80",
+                             4 * forward_matmul_flops(tc.batch_size, 80))
     if by_kernel:
-        print(f"  device busy {busy_ms:.2f} ms/step, idle share "
-              f"{max(0.0, 1 - busy_ms / step_ms):.3f}; top kernels (us/step):")
-        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"    {us:9.1f}  {name[:90]}")
         dp_us = {k: v for k, v in by_kernel.items() if "dp_" in k and "kernel" in k}
         print(f"  DP kernels in the step (us/step): {dp_us}")
-    else:
-        print("  the profiler saw no device activity: device time not measured")
+    del trainer, train_dev, test_dev
 
-    phase("timing at (8, 2304)")
+    phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
+    train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
+    check(train.eeg_input.shape == (N_TRAIN, 512), "the 512-token rows were cut")
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    snaps = {}  # host copies of the params after each epoch, for the checkpoint check
+    run_epoch = Trainer.run_epoch
+
+    def snapshot_epoch(self, *args, **kwargs):
+        row = run_epoch(self, *args, **kwargs)
+        snaps[row["epoch"]] = tree_map(lambda t: t.detach().cpu().clone(), self.params)
+        return row
+
+    api = TrainAndTest(compute_dtype="float32", epochs=2, artifacts_root=root, echo=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in all_kernels:
+        k.launches = 0
+    Trainer.run_epoch = snapshot_epoch
+    try:
+        result = api.train_on(train, test, "DPMLD", "smoke/", "ti", "lapacian_dropout",
+                              auto_truncate=False)
+    finally:
+        Trainer.run_epoch = run_epoch
+    launches = {k.name: k.launches for k in all_kernels}
+    history = result["history"]
+    print_rows(history, steps)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {launches}; f1_best {result['f1_best']:.4f}")
+    check(len(history) == 2, "fit ran another number of epochs")
+    for row in history:
+        check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
+              "non-finite loss at S = 512")
+        check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1] at S = 512")
+    layers = fusion.config_for("ti", "lapacian_dropout").bert_cfg().num_layers
+    want = {"attn_fwd": layers * (2 * steps + eval_batches) * 2,
+            "attn_bwd": layers * steps * 2, "dp_fwd": 0, "dp_bwd": 0}
+    check(launches == want, f"launches {launches}, expected {want}")
+    final = api.trainer.params
+    check(not torch.equal(final["DP"].cpu(), snaps[1]["DP"])
+          and float(final["DP"].abs().max()) > 0, "DP did not train at S = 512")
+    logs = os.path.join(root, "logs", "DPMLD", "smoke")
+    recs = parse_legacy_records(open(os.path.join(logs, "whole_record.txt")).read())
+    check([r["epoch"] for r in recs] == [1, 2], f"whole_record.txt epochs {recs}")
+    check(len(open(os.path.join(logs, "metrics.jsonl")).read().splitlines()) == 2,
+          "metrics.jsonl does not hold two epochs")
+    ckpt_path = os.path.join(root, "models", "custom", "DPMLD", "smoke", "best_f1.pickle")
+    if result["f1_best"] > tc.f1_best_init:
+        check(os.path.exists(ckpt_path) and os.path.exists(os.path.join(logs, "best_record.txt")),
+              "F1 improved but no checkpoint or best record")
+        loaded = load_torch_checkpoint(ckpt_path, api.trainer.fusion_cfg, device="cpu")
+        best = dict(tree_items(snaps[result["best"]["epoch"]]))
+        check(all(torch.equal(leaf, best[path]) for path, leaf in tree_items(loaded)),
+              "the checkpoint differs from the best params")
+        print(f"  checkpoint of epoch {result['best']['epoch']} loads back equal")
+    else:
+        check(not os.path.exists(ckpt_path), "F1 never improved, yet a checkpoint exists")
+        print("  F1 did not pass 0.5: no checkpoint written, as expected")
+    # either way, the final params through the checkpoint format and back
+    round_trip = os.path.join(root, "final.pickle")
+    save_torch_checkpoint(round_trip, final, api.trainer.fusion_cfg)
+    back = load_torch_checkpoint(round_trip, api.trainer.fusion_cfg)
+    check(all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(back), tree_items(final))),
+          "the final params do not survive the checkpoint round trip on the card")
+    shutil.rmtree(root)
+
+    phase("profile: steady-state train step at S = 512 (device time by kernel)")
+    by_kernel = profile_step(torch, step_fn(api.trainer, train.to_device(dev)), "S = 512",
+                             4 * forward_matmul_flops(tc.batch_size, 512))
+    if by_kernel:
+        attn = {k: v for k, v in by_kernel.items() if "attn_" in k}
+        total = sum(by_kernel.values())
+        print(f"  attention kernels: {sum(attn.values()):.1f} us/step, "
+              f"{sum(attn.values()) / total:.3f} of device time; "
+              + ", ".join(f"{name} {v:.1f}" for name, v in
+                          ((re.search(r"attn_[a-z]+", k).group(0), v) for k, v in attn.items())))
+    del api
+
+    phase("timing: DP kernels at (8, 2304)")
     B, F = 8, fc.concat_width
     f, dp = inputs(B, F)
     g = torch.randn(B, F, generator=gen, device=dev)
@@ -312,18 +539,109 @@ def main():
     kernels = []
     for name, (kern, plain) in timed.items():
         ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-        bms, by = bound_ms(name, B, F)
+        bms, by = dp_bound_ms(name, B, F)
         dev_k = sum(device_us(torch, kern).values())
         dev_p = sum(device_us(torch, plain).values())
         print(f"  {name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (CUDA "
               f"events over back-to-back calls); device time kernel {dev_k:.2f} us, plain "
               f"{dev_p:.2f} us; bound {bms * 1e3:.4f} us ({by})")
         kernels.append({
-            "name": name, "route": "triton", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": ROUTES[name], "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches_80[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
+
+    phase("timing: attention kernels, f32, p = 0.1 (the gate question at S = 80 and 128)")
+    import torch.nn.functional as TF
+
+    for S in (80, 128, 512):
+        B, H, D = 8, 12, 64
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        bias[:, VALID_TOKENS:] = NEG
+        bias4 = bias[:, None, None, :]
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev)
+        s = seed(11)
+        out, stats = A.attn_fwd(q, k, v, bias, s, ATTN_DROP)
+
+        def plain_fwd():
+            keep = torch.rand(B, H, S, S, generator=gen, device=dev) < 1 - ATTN_DROP
+            return A.attention_plain(q, k, v, bias, keep, ATTN_DROP)
+
+        def plain_bwd():
+            keep = torch.rand(B, H, S, S, generator=gen, device=dev) < 1 - ATTN_DROP
+            return A.attention_bwd_plain(q, k, v, bias, keep, ATTN_DROP, dout)
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(q, k, v, attn_mask=bias4, dropout_p=ATTN_DROP)
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*leaves), leaves, dout)
+
+        n = 20 if S == 512 else 50
+        t = {
+            "fwd": time_ms(torch, lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP), n, 5),
+            "fwd plain": time_ms(torch, plain_fwd, n, 5),
+            "fwd sdpa": time_ms(torch, sdpa, n, 5),
+            "bwd": time_ms(torch, lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats,
+                                                     dout), n, 5),
+            "bwd plain": time_ms(torch, plain_bwd, n, 5),
+            "fwd+bwd": time_ms(torch, fwd_bwd(
+                lambda q_, k_, v_: A.fused_attention(q_, k_, v_, bias, s, ATTN_DROP)), n, 5),
+            "fwd+bwd unfused": time_ms(torch, fwd_bwd(
+                lambda q_, k_, v_: bert_mod.attention_unfused(q_, k_, v_, bias4, ATTN_DROP,
+                                                              gen)), n, 5),
+            "fwd+bwd sdpa": time_ms(torch, fwd_bwd(
+                lambda q_, k_, v_: TF.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=bias4, dropout_p=ATTN_DROP)), n, 5),
+        }
+        t["bwd sdpa"] = t["fwd+bwd sdpa"] - t["fwd sdpa"]
+        # the eval path's forward: no mask, so no Philox
+        t["fwd p=0"] = time_ms(torch, lambda: A.attn_fwd(q, k, v, bias, s, 0.0), n, 5)
+        dev_t = {
+            "fwd": sum(device_us(torch, lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP),
+                                 10).values()),
+            "bwd": sum(device_us(torch, lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out,
+                                                           stats, dout), 10).values()),
+            "fwd plain": sum(device_us(torch, plain_fwd, 10).values()),
+            "bwd plain": sum(device_us(torch, plain_bwd, 10).values()),
+        }
+        bounds = {name: attn_bound_ms(name, B, H, S, D, 4) for name in ("attn_fwd", "attn_bwd")}
+        print(f"  S = {S}: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in t.items()))
+        print(f"  S = {S}: device time fwd {dev_t['fwd']:.1f} us, bwd {dev_t['bwd']:.1f} us, "
+              f"plain fwd {dev_t['fwd plain']:.1f} us, plain bwd {dev_t['bwd plain']:.1f} us; "
+              f"bound fwd {bounds['attn_fwd'][0] * 1e3:.1f} us ({bounds['attn_fwd'][1]}), "
+              f"bwd {bounds['attn_bwd'][0] * 1e3:.1f} us ({bounds['attn_bwd'][1]})")
+        if S == 512:
+            for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
+                kernels.append({
+                    "name": name, "route": ROUTES[name], "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": err[name], "ms": t[key], "plain_ms": t[key + " plain"],
+                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                    "library_ms": t[key + " sdpa"],
+                })
+
+    phase("timing: attention kernels, bf16, (8, 12, 512, 64), p = 0.1")
+    B, H, S, D = 8, 12, 512, 64
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+                     for _ in range(4))
+    bias = torch.zeros(B, S, device=dev)
+    s = seed(13)
+    out, stats = A.attn_fwd(q, k, v, bias, s, ATTN_DROP)
+    bf = {"fwd": time_ms(torch, lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP), 20, 5),
+          "bwd": time_ms(torch, lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats,
+                                                   dout), 20, 5),
+          "fwd sdpa": time_ms(torch, lambda: TF.scaled_dot_product_attention(
+              q, k, v, attn_mask=bias[:, None, None, :], dropout_p=ATTN_DROP), 20, 5)}
+    bnd = {n: attn_bound_ms(n, B, H, S, D, 2)[0] for n in ("attn_fwd", "attn_bwd")}
+    print("  " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in bf.items())
+          + f"; bound fwd {bnd['attn_fwd'] * 1e3:.2f} us, bwd {bnd['attn_bwd'] * 1e3:.2f} us")
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,17 @@ names, same parameter tree) and holds against it in ``tests/test_torch_*.py``.
 It imports neither JAX nor the JAX package.
 
 - ``utils``  : device resolution (the card unless ``device="cpu"``) and seeds
-- ``data``   : stacked multimodal arrays, pairing, truncation, epoch batching
+- ``data``   : the reference's file loaders, stacked multimodal arrays,
+               pairing, truncation, epoch batching
 - ``models`` : torch-semantics layers, BERT-base, the fusion model, and the
                conversion of the JAX package's parameter tree
 - ``ops``    : the DP mechanism; ``ops.dp_fused`` holds the Triton kernels of
-               the fused DP block (forward and backward)
+               the fused DP block, ``ops.attention`` wraps the CUDA C++
+               attention kernels of ``csrc/`` (built by ``ops._build``),
+               each forward and backward
 - ``train``  : loss and metrics, Adam, the alternating-optimizer trainer
+               with ``fit``, legacy records, checkpoints, and the
+               ``TrainAndTest`` API
 
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """

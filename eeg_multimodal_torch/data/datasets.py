@@ -1,9 +1,9 @@
 """Stacked multimodal datasets, pairing, token truncation and epoch batching.
 
-Port of the JAX package's ``data/datasets.py`` (the stacked-array part). The
-whole split lives on the device as a dict of tensors; an epoch is a
-permutation cut into a padded (n_batches, B) index matrix, and a batch is an
-``index_select`` of every array.
+Port of the JAX package's ``data/datasets.py``: the reference's file
+loaders and the stacked arrays. The whole split lives on the device as a
+dict of tensors; an epoch is a permutation cut into a padded (n_batches, B)
+index matrix, and a batch is an ``index_select`` of every array.
 
 Batch schema (the reference's 5-tuple, dataset.py:35-44), for ``ti``:
   eeg_input : (B, S) int64 tokens     eeg_mask : (B, S) int64
@@ -13,10 +13,44 @@ Batch schema (the reference's 5-tuple, dataset.py:35-44), for ``ti``:
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Loaders for the reference's on-disk artifact formats (datasets.py:33-61 of
+# the JAX package)
+# ---------------------------------------------------------------------------
+
+def load_label_csv(path: str) -> np.ndarray:
+    """Label CSV with header 'label'; NaN/empty -> 0 (dataset.py:41-43)."""
+    labels = []
+    with open(path) as f:
+        next(f)  # header
+        for line in f:
+            s = line.strip()
+            labels.append(0 if s in ("", "nan") else int(float(s)))
+    return np.asarray(labels, np.int32)
+
+
+def load_bert_pickle(path: str) -> Dict[str, np.ndarray]:
+    """List of HF BatchEncoding dicts -> stacked {input_ids, attention_mask}
+    (format produced by get_embedding.py:113-116, consumed dataset.py:36-37)."""
+    with open(path, "rb") as f:
+        items = pickle.load(f)
+    ids = np.asarray([np.asarray(e["input_ids"]).reshape(-1) for e in items], np.int32)
+    mask = np.asarray([np.asarray(e["attention_mask"]).reshape(-1) for e in items], np.int32)
+    return {"input_ids": ids, "attention_mask": mask}
+
+
+def load_embedding_pickle(path: str) -> np.ndarray:
+    """(N, 512) float32 image-embedding array (e.g. CLIP)."""
+    with open(path, "rb") as f:
+        arr = pickle.load(f)
+    return np.asarray(arr, np.float32)
 
 
 @dataclasses.dataclass

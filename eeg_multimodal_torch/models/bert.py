@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import attention as fused
 from .layers import dropout, layer_norm, linear
 
 
@@ -78,11 +79,25 @@ def init(gen: torch.Generator, config: BertConfig, device):
 def _attention(q, k, v, attn_bias, attn_drop, gen):
     """softmax(QK^T/sqrt(D) + bias) V over (B, H, S, D).
 
-    The one dispatch point of self-attention. At the flagship's truncated
-    S = 80 the JAX package also takes its einsum branch here (its Pallas
-    kernel dispatches only at S >= 512, S % 128 == 0); the Hopper attention
-    kernel of the 512-token path plugs in at this function.
+    The one dispatch point of self-attention, as ``bert.py:156-172`` of the
+    JAX package: where ``attention_available(S, D)`` (the untruncated
+    512-token path) the fused CUDA kernels run, with a dropout seed drawn
+    per layer from ``gen`` as a one-element device tensor (no host sync);
+    elsewhere (the flagship's truncated S = 80) the plain branch.
     """
+    S, D = q.shape[-2:]
+    if fused.attention_available(S, D):
+        bias = attn_bias[:, 0, 0, :]  # (B, S)
+        if gen is not None and attn_drop > 0.0:
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=q.device)
+            return fused.fused_attention(q, k, v, bias, seed, attn_drop)
+        seed = torch.zeros(1, dtype=torch.int64, device=q.device)
+        return fused.fused_attention(q, k, v, bias, seed, 0.0)
+    return attention_unfused(q, k, v, attn_bias, attn_drop, gen)
+
+
+def attention_unfused(q, k, v, attn_bias, attn_drop, gen):
+    """The plain branch: (B, H, S, S) scores and probs in device memory."""
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     probs = torch.softmax(scores + attn_bias, dim=-1)  # additive mask, HF-style
     return torch.matmul(dropout(probs, attn_drop, gen), v)
@@ -96,6 +111,7 @@ def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen):
     w = torch.cat([p["query"]["kernel"], p["key"]["kernel"], p["value"]["kernel"]], dim=1)
     b = torch.cat([p["query"]["bias"], p["key"]["bias"], p["value"]["bias"]])
     qkv = F.linear(x, w.t(), b)
+    # strided (B, H, S, D) views of qkv: the kernels take them without copies
     q, k, v = (
         qkv[..., i * H:(i + 1) * H].reshape(B, S, num_heads, D).transpose(1, 2)
         for i in range(3)
@@ -141,3 +157,4 @@ def apply(
 
     pooled = torch.tanh(linear(params["pooler"], x[:, 0]))
     return x, pooled
+

@@ -22,6 +22,7 @@ from ..ops import dp as dp_ops
 from ..ops import dp_fused
 from ..utils.device import resolve_device
 from ..utils.seeding import generator as make_generator
+from ..utils.trees import tree_map
 from . import bert as bert_mod
 from . import layers as L
 
@@ -111,19 +112,28 @@ def check_ported(config: FusionConfig):
     if not ported:
         raise NotImplementedError(
             f"{config.name}: the port runs the ti / double_stream / "
-            "lapacian_dropout float32 model (TICA_LapDropout) only"
+            "lapacian_dropout float32 model (TICA_LapDropout) only; the other "
+            "classes and DPSGD wait (ROADMAP.md, queue 1, items 6 and 11)"
         )
 
 
-def init(config: FusionConfig, seed: int, device=None):
+def init(config: FusionConfig, seed: int, device=None, bert_params=None):
     """A fresh parameter tree on ``device`` (the card unless "cpu"), drawn
-    from ``seed`` with the reference's init distributions."""
+    from ``seed`` with the reference's init distributions. ``bert_params``
+    (tensors or numpy arrays) injects pretrained BERT weights in place of
+    the drawn ones (fusion.py:149-166 of the JAX package)."""
     check_ported(config)
     dev = resolve_device(device)
     gen = make_generator(seed, dev)
     width = config.concat_width
+    if bert_params is None:
+        bert = bert_mod.init(gen, config.bert_cfg(), dev)
+    else:
+        # a copy: the caller's tree survives the in-place updates
+        bert = tree_map(lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).clone(),
+                        bert_params)
     return {
-        "bert": bert_mod.init(gen, config.bert_cfg(), dev),
+        "bert": bert,
         "visual_encoder": L.linear_init(gen, VISUAL_IN, D_MODEL, dev),
         "cross": L.decoder_init(gen, D_MODEL, N_CROSS_LAYERS, dev),
         "fc1": L.linear_init(gen, width, width, dev),

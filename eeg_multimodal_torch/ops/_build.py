@@ -1,0 +1,77 @@
+"""Build the port's CUDA C++ sources with nvcc and load them with ctypes.
+
+The ``.cu`` files under ``eeg_multimodal_torch/csrc/`` expose a plain C
+interface. At first use they are compiled, all in one nvcc call, into one
+shared library for Hopper (``sm_90a``), under
+``.cache/kernels/<hash of the sources and flags>/`` at the checkout's root
+(git-ignored), and loaded with ``ctypes``. A later call with the same
+sources loads the cached library. A failed build raises with nvcc's stderr:
+there is no other way to the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+CACHE = os.path.join(os.path.dirname(_PKG), ".cache", "kernels")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIB_NAME = "libeeg_kernels.so"
+
+
+def sources():
+    """The ``.cu`` sources, sorted; ``.cuh`` headers count in the hash."""
+    names = sorted(os.listdir(CSRC))
+    return ([os.path.join(CSRC, n) for n in names if n.endswith(".cu")],
+            [os.path.join(CSRC, n) for n in names if n.endswith(".cuh")])
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _digest(files) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in files:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded library: ``(ctypes.CDLL, build log, seconds spent)``. The
+    log is ptxas's register and shared-memory report; the seconds are 0
+    when the cached library was loaded."""
+    cu, cuh = sources()
+    out_dir = os.path.join(CACHE, _digest(cu + cuh))
+    lib = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, "build.log")
+    seconds = 0.0
+    if not os.path.exists(lib):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *FLAGS, "-I", CSRC, "-o", tmp, *cu]
+        t0 = time.time()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.time() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
+                               f"{res.stderr}")
+        with open(log_path, "w") as f:
+            f.write(res.stdout + res.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    log = open(log_path).read() if os.path.exists(log_path) else ""
+    return ctypes.CDLL(lib), log, seconds

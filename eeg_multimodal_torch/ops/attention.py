@@ -1,0 +1,309 @@
+"""Fused BERT self-attention, forward and backward, as CUDA C++ kernels.
+
+Replaces the JAX package's Pallas TPU kernels in ``ops/attention.py``:
+``_fwd_kernel`` and ``_bwd_kernel``. The kernels are in
+``eeg_multimodal_torch/csrc/attention.cu`` (built by ``ops/_build.py``; the
+source notes what bounds them and how they are tiled). They compute
+
+    out = dropout(softmax(q k^T / sqrt(D) + bias)) v
+
+over (B, H, S, D) with f32 scores, a (B, S) additive key bias (0 or
+finfo(f32).min), and prob dropout kept where ``(bits >> 8) < (1 - p) 2^24``
+and scaled by 1 / (1 - p), the JAX kernel's rule. The backward regenerates
+the mask from the seed instead of storing it.
+
+Beside them stand their plain PyTorch versions (``attention_plain``,
+``attention_bwd_plain``, with an explicit keep mask). The wrappers take them
+only for tensors on the CPU, where the mask comes from a ``torch.Generator``
+seeded with the seed. On a CUDA tensor they launch the kernels or raise. The
+card's mask is a Philox stream, not the TPU's bits nor JAX's threefry:
+compare distributions, or hand both sides the same mask.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from .dp_fused import KernelWrapper, random_bits
+
+HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_available(S: int, D: int) -> bool:
+    """Whether self-attention at (S, D) dispatches to the kernels.
+
+    The JAX package's gate (``ops/attention.py::attention_available``): S a
+    multiple of 128, at least 512, D a multiple of 64, and one head's scores
+    and operands under 8 MB; so both packages take the same branch at the
+    same shapes. The kernels are built for D in ``HEAD_DIMS``, which holds
+    every BERT head width (64); at another D the plain branch runs. The
+    gate came from TPU timings; the H100's is a later change, set from the
+    timings ``chip_smoke.py`` prints at S = 80, 128 and 512.
+    """
+    vmem = S * S * 4 + 5 * S * D * 4
+    return (S % 128 == 0 and D % 64 == 0 and S >= 512 and vmem < 8 * 1024 * 1024
+            and D in HEAD_DIMS)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the yardstick of the kernels on the card)
+# ---------------------------------------------------------------------------
+
+def keep_threshold(dropout_rate: float) -> int:
+    """The 24-bit keep threshold of the JAX kernel: (1 - p) * 2^24."""
+    return int((1.0 - dropout_rate) * (1 << 24))
+
+
+def seeded_keep(seed: int, shape, dropout_rate: float):
+    """The CPU path's keep mask for ``seed``: the same draw in forward and
+    backward, by the kernels' rule on torch's uniform 32-bit draws."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.bitwise_right_shift(random_bits(shape, gen), 8) < keep_threshold(dropout_rate)
+
+
+def _mask_shape(q):
+    B, H, S, _ = q.shape
+    return (B, H, S, S)
+
+
+def _bias2d(bias):
+    """(B, S) from the JAX package's (B, 1, S) or a (B, S) bias."""
+    return bias[:, 0, :] if bias.dim() == 3 else bias
+
+
+def _scores_probs(q, k, bias):
+    """f32 scores q k^T * scale + bias and their stable softmax."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s + _bias2d(bias).float()[:, None, None, :]
+    return torch.softmax(s, dim=-1)
+
+
+def _drop(x, keep, dropout_rate):
+    return torch.where(keep, x / (1.0 - dropout_rate), torch.zeros((), dtype=x.dtype))
+
+
+def attention_plain(q, k, v, bias, keep=None, dropout_rate: float = 0.0):
+    """softmax(q k^T / sqrt(D) + bias) v over (B, H, S, D), dropout by the
+    boolean (B, H, S, S) ``keep``. f32 scores and softmax; P is rounded to
+    the input dtype before P.V, which accumulates in f32."""
+    if dropout_rate > 0.0 and keep is None:
+        raise ValueError("dropout needs the keep mask")
+    p = _scores_probs(q, k, bias)
+    if dropout_rate > 0.0:
+        p = _drop(p, keep, dropout_rate)
+    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def attention_bwd_plain(q, k, v, bias, keep, dropout_rate: float, dout):
+    """Hand-derived backward of :func:`attention_plain` for the output
+    gradient ``dout``: (dq, dk, dv), as the JAX kernel computes it.
+
+    dV = P_drop^T dO;  dP = dO V^T, masked and scaled;
+    dS = P (dP - rowsum(dP P));  dQ = dS K / sqrt(D);  dK = dS^T Q / sqrt(D).
+    P_drop, dO and dS are rounded to the input dtype before their products.
+    """
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _scores_probs(q, k, bias)
+    p_drop = _drop(p, keep, dropout_rate) if dropout_rate > 0.0 else p
+    do = dout.to(dt).float()
+    dv = torch.matmul(p_drop.to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    if dropout_rate > 0.0:
+        dp = _drop(dp, keep, dropout_rate)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# dtype, D, B, H, S, then q, k, v each as a pointer and (b, h, s) strides,
+# bias, seed, scale, threshold, keep probability, dropout on
+_COMMON = [_I] * 5 + [_P, _I64, _I64, _I64] * 3 + [_P, _P, _F, _I, _F, _I]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The built library with every C function's argument types set."""
+    lib = _build.library()[0]
+    lib.eeg_attn_fwd.argtypes = _COMMON + [_P, _P, _P]  # out, stats, stream
+    # out, stats, dout + strides, delta, dq, dk, dv, stream
+    lib.eeg_attn_bwd.argtypes = _COMMON + [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P]
+    lib.eeg_attn_dropout_mask.argtypes = [_I, _I, _I, _P, _I, _P, _P]
+    for fn in (lib.eeg_attn_fwd, lib.eeg_attn_bwd, lib.eeg_attn_dropout_mask):
+        fn.restype = _I
+    lib.eeg_cuda_error_string.argtypes = [_I]
+    lib.eeg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        msg = _lib().eeg_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_seed(seed, device):
+    if seed.numel() != 1 or seed.dtype != torch.int64 or seed.device != device:
+        raise ValueError(f"seed must be one int64 element on {device}")
+
+
+def _check(q, k, v, bias, seed, dropout_rate, dout=None):
+    if not q.is_cuda:
+        raise ValueError("the attention kernels take CUDA tensors")
+    if q.dim() != 4:
+        raise ValueError(f"q has shape {tuple(q.shape)}, expected (B, H, S, D)")
+    B, H, S, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (B, H, S, D) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {(B, H, S, D)} {q.dtype} on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride along D")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {list(_DTYPES)}")
+    if D not in HEAD_DIMS or min(B, H, S) == 0:
+        raise ValueError(f"head width {D} not in {HEAD_DIMS}, or an empty axis")
+    if tuple(bias.shape) != (B, S) or bias.dtype != torch.float32 \
+            or not bias.is_contiguous() or bias.device != q.device:
+        raise ValueError(f"bias must be contiguous (B, S) = {(B, S)} float32 on {q.device}")
+    _check_seed(seed, q.device)
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout rate {dropout_rate} outside [0, 1)")
+
+
+def _common_args(q, k, v, bias, seed, dropout_rate):
+    B, H, S, D = q.shape
+    args = [_DTYPES[q.dtype], D, B, H, S]
+    for t in (q, k, v):
+        args += [t.data_ptr(), *t.stride()[:3]]
+    return args + [bias.data_ptr(), seed.data_ptr(), 1.0 / math.sqrt(D),
+                   keep_threshold(dropout_rate), 1.0 - dropout_rate, int(dropout_rate > 0.0)]
+
+
+def _launch_fwd(q, k, v, bias, seed, dropout_rate: float = 0.0):
+    """Launch the forward kernel on CUDA tensors. q, k, v: (B, H, S, D)
+    views with a unit last stride; bias (B, S) f32; seed one int64 element.
+    Returns (out, stats): out a (B, H, S, D) view of a (B, S, H, D) buffer;
+    stats (2, B, H, S) f32, each row's softmax max m and sum l, for the
+    backward."""
+    _check(q, k, v, bias, seed, dropout_rate)
+    B, H, S, D = q.shape
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    err = _lib().eeg_attn_fwd(*_common_args(q, k, v, bias, seed, dropout_rate),
+                              out.data_ptr(), stats.data_ptr(), _stream())
+    _raise_on(err, "attn_fwd")
+    return out.transpose(1, 2), stats
+
+
+def _launch_bwd(q, k, v, bias, seed, dropout_rate, out, stats, dout):
+    """Launch the backward kernels (the rowsum(dO O) pre-pass, dK/dV, dQ)
+    on CUDA tensors, given the forward's ``out`` and ``stats`` and the output
+    gradient ``dout``. Returns (dq, dk, dv), (B, H, S, D) views of
+    (B, S, H, D) buffers."""
+    _check(q, k, v, bias, seed, dropout_rate, dout)
+    B, H, S, D = q.shape
+    if tuple(out.shape) != (B, H, S, D) or not out.transpose(1, 2).is_contiguous() \
+            or out.dtype != q.dtype:
+        raise ValueError("out must be the forward's (B, H, S, D) view of a (B, S, H, D) buffer")
+    if tuple(stats.shape) != (2, B, H, S) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous():
+        raise ValueError("stats must be the forward's contiguous (2, B, H, S) float32")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    err = _lib().eeg_attn_bwd(*_common_args(q, k, v, bias, seed, dropout_rate),
+                              out.data_ptr(), stats.data_ptr(), dout.data_ptr(),
+                              *dout.stride()[:3], delta.data_ptr(), dq.data_ptr(),
+                              dk.data_ptr(), dv.data_ptr(), _stream())
+    _raise_on(err, "attn_bwd")
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+attn_fwd = KernelWrapper("attn_fwd", _launch_fwd)
+attn_bwd = KernelWrapper("attn_bwd", _launch_bwd)
+KERNELS = (attn_fwd, attn_bwd)
+
+
+def attn_dropout_mask(seed, B: int, H: int, S: int, dropout_rate: float):
+    """The kernels' keep mask for (B, H, S, S) as uint8, drawn by the same
+    device function: a test hook that hands the plain version the kernels'
+    exact mask. Nothing on the training path calls it."""
+    if not seed.is_cuda:
+        raise ValueError("the mask kernel takes a CUDA seed")
+    _check_seed(seed, seed.device)
+    out = torch.empty((B, H, S, S), dtype=torch.uint8, device=seed.device)
+    err = _lib().eeg_attn_dropout_mask(B, H, S, seed.data_ptr(),
+                                       keep_threshold(dropout_rate), out.data_ptr(), _stream())
+    _raise_on(err, "attn_dropout_mask")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function
+# ---------------------------------------------------------------------------
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, dropout_rate, keep):
+        ctx.dropout_rate = dropout_rate
+        if q.is_cuda:
+            if keep is not None:
+                raise ValueError("on the card the mask is drawn in the kernel")
+            out, stats = attn_fwd(q, k, v, bias, seed, dropout_rate)
+            ctx.save_for_backward(q, k, v, bias, seed, out, stats)
+            return out
+        drawn = keep
+        if dropout_rate > 0.0 and keep is None:
+            drawn = seeded_keep(int(seed.reshape(-1)[0]), _mask_shape(q), dropout_rate)
+        # the seed, not the mask: the backward regenerates it
+        ctx.save_for_backward(q, k, v, bias, seed, *(() if keep is None else (keep,)))
+        return attention_plain(q, k, v, bias, drawn, dropout_rate)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rate = ctx.dropout_rate
+        if dout.is_cuda:
+            q, k, v, bias, seed, out, stats = ctx.saved_tensors
+            if dout.stride(-1) != 1:
+                dout = dout.contiguous()
+            dq, dk, dv = attn_bwd(q, k, v, bias, seed, rate, out, stats, dout)
+        else:
+            q, k, v, bias, seed, *given = ctx.saved_tensors
+            keep = given[0] if given else None
+            if rate > 0.0 and keep is None:
+                keep = seeded_keep(int(seed.reshape(-1)[0]), _mask_shape(q), rate)
+            dq, dk, dv = attention_bwd_plain(q, k, v, bias, keep, rate, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def fused_attention(q, k, v, bias, seed, dropout_rate: float = 0.0, keep=None):
+    """softmax(q k^T / sqrt(D) + bias) v with prob dropout, one kernel each
+    way on the card.
+
+    q, k, v : (B, H, S, D) f32 or bf16, any strides with a unit last one
+    (the packed QKV views go in without copies); bias : (B, S) or the JAX
+    package's (B, 1, S) f32 additive key bias; seed : one int64 element on
+    the same device, read in the kernel; dropout_rate in [0, 1). Returns
+    (B, H, S, D), a view of a (B, S, H, D) buffer on the card. ``keep``
+    (CPU only) replaces the seed's draw with a given boolean (B, H, S, S)
+    mask, so that tests can hand the port the JAX reference's mask. No
+    gradient flows to the bias or the seed.
+    """
+    return _FusedAttention.apply(q, k, v, _bias2d(bias), seed, float(dropout_rate), keep)

@@ -1,0 +1,156 @@
+"""Public API facade: ``TrainAndTest`` with the reference's signature.
+
+Port of the JAX package's ``train/api.py:27-228`` (reference:
+python/src/custom_models/base_train.py:47-553): the same argument list, the
+same path-based dataset resolution (base_train.py:77-125) and the same
+on-disk layout,
+
+  data/embedding/<modal>/<txt|img>/<model>_<coef_std>/{train,test}.pickle
+  data/processed/{train,test}_label.csv
+  models/custom/<train_type>/<path_suffix>best_f1.pickle
+  logs/<train_type>/<path_suffix>{whole,best}_record.txt
+
+with the port's trainer underneath, on the card unless ``device="cpu"``.
+What the port does not run yet (the bf16 compute cast, DPSGD and the other
+model classes, the compact vocab, ``predict``) raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional
+
+from ..data import datasets as D
+from ..models import fusion
+from ..utils.device import resolve_device
+from ..utils.seeding import DEFAULT_SEED
+from .trainer import TrainConfig, Trainer
+
+
+def standardize_coef(coef: str) -> str:
+    """'ViT-B/32' -> 'ViT_B_32' (base_train.py:74-75)."""
+    return coef.replace("/", "_").replace("-", "_")
+
+
+class TrainAndTest:
+    """ref signature: TrainAndTest(batch_size=8, learning_rate=1e-6,
+    epochs=50).train(train_type, path_suffix, multimodal_type, dp_mode,
+    eeg_model, eeg_model_coef, act_model, act_model_coef, cross_atn_type,
+    epsilon).
+
+    ``compute_dtype`` keeps the JAX package's default, "bfloat16", which the
+    port does not run yet: pass "float32", the reference's own precision.
+    ``device`` is the card unless "cpu". After ``train_on`` the trainer of
+    the run stays in ``self.trainer``.
+    """
+
+    def __init__(
+        self,
+        batch_size: int = 8,
+        learning_rate: float = 1e-6,
+        epochs: int = 50,
+        data_root: str = ".",
+        compute_dtype: str = "bfloat16",
+        bert_params=None,
+        echo: bool = True,
+        artifacts_root: Optional[str] = None,
+        seed: int = DEFAULT_SEED,  # ref: base_train.py:43 set_seed(980616)
+        device=None,
+    ):
+        self.batch_size = batch_size
+        self.learning_rate = learning_rate
+        self.epochs = epochs
+        self.data_root = data_root
+        self.compute_dtype = compute_dtype
+        self.bert_params = bert_params
+        self.echo = echo
+        self.seed = seed
+        # logs and checkpoints go under artifacts_root, by default data_root
+        self.artifacts_root = artifacts_root or data_root
+        self.device = resolve_device(device)
+        self.trainer: Optional[Trainer] = None
+
+    # -- dataset resolution (base_train.py:77-125) ---------------------------
+    def _embedding_path(self, modal: str, repr_: str, model: str, coef: str, split: str):
+        return os.path.join(
+            self.data_root, "data", "embedding", modal, repr_,
+            f"{model}_{standardize_coef(coef)}", f"{split}.pickle",
+        )
+
+    def _load_split(self, split, multimodal_type, eeg_model, eeg_model_coef,
+                    act_model, act_model_coef):
+        labels = D.load_label_csv(
+            os.path.join(self.data_root, "data", "processed", f"{split}_label.csv"))
+        kw: Dict[str, Any] = {}
+        eeg_repr = "txt" if multimodal_type[0] == "t" else "img"
+        act_repr = "txt" if multimodal_type[1] == "t" else "img"
+        eeg_path = self._embedding_path("EEG", eeg_repr, eeg_model, eeg_model_coef, split)
+        act_path = self._embedding_path("act", act_repr, act_model, act_model_coef, split)
+        if eeg_repr == "txt":
+            kw["eeg_txt"] = D.load_bert_pickle(eeg_path)
+        else:
+            kw["eeg_img"] = D.load_embedding_pickle(eeg_path)
+        if act_repr == "txt":
+            kw["act_txt"] = D.load_bert_pickle(act_path)
+        else:
+            kw["act_img"] = D.load_embedding_pickle(act_path)
+        return D.build_pairing(multimodal_type, labels, **kw)
+
+    # -- the public train entry ---------------------------------------------
+    def train(self, train_type: str, path_suffix: str, multimodal_type: str, dp_mode: str,
+              eeg_model: str, eeg_model_coef: str, act_model: str, act_model_coef: str,
+              cross_atn_type: str, epsilon: float):
+        splits = [self._load_split(split, multimodal_type, eeg_model, eeg_model_coef,
+                                   act_model, act_model_coef) for split in ("train", "test")]
+        return self.train_on(*splits, train_type, path_suffix, multimodal_type, dp_mode,
+                             eeg_model_coef, cross_atn_type, epsilon)
+
+    def train_on(
+        self,
+        train_data,
+        test_data,
+        train_type: str,
+        path_suffix: str,
+        multimodal_type: str,
+        dp_mode: str,
+        eeg_model_coef: str = "bert-base-uncased",
+        cross_atn_type: str = "double_stream",
+        epsilon: float = 0.1,
+        bert_config=None,
+        auto_truncate: bool = True,
+        compact_vocab: bool = False,
+        vocab=None,
+    ):
+        """In-memory variant of :meth:`train` (datasets already built).
+
+        ``auto_truncate`` drops all-padding token columns (exact, see
+        ``data.datasets.truncate_tokens``); with it off the encoder runs at
+        the padded 512 tokens, where self-attention goes through the fused
+        attention kernels.
+        """
+        if compact_vocab or vocab is not None:
+            raise NotImplementedError(
+                "compact_vocab / vocab are not ported yet (ROADMAP.md, Next, item 4)")
+        fc = fusion.config_for(multimodal_type, dp_mode, cross_atn_type,
+                               bert_coef=eeg_model_coef, dtype="float32")
+        if bert_config is not None:
+            fc = dataclasses.replace(fc, bert_config=bert_config)
+        fusion.check_ported(fc)  # DPSGD and the other classes wait
+        tc = TrainConfig(batch_size=self.batch_size, learning_rate=self.learning_rate,
+                         epochs=self.epochs, compute_dtype=self.compute_dtype,
+                         seed=self.seed)
+
+        if auto_truncate:
+            train_data, test_data = D.truncate_pair(train_data, test_data)
+        model_path = os.path.join(self.artifacts_root, "models", "custom", train_type,
+                                  path_suffix, "best_f1.pickle")
+        log_path = os.path.join(self.artifacts_root, "logs", train_type, path_suffix)
+        self.trainer = Trainer(fc, tc, bert_params=self.bert_params, device=self.device)
+        return self.trainer.fit(train_data, test_data, epsilon, log_path=log_path,
+                                model_path=model_path, echo=self.echo)
+
+    def predict(self, *args, **kwargs):
+        """Evaluate a trained checkpoint (api.py:231 of the JAX package): not
+        ported yet."""
+        raise NotImplementedError("predict is not ported yet (ROADMAP.md, Next, item 3)")

@@ -12,29 +12,75 @@ marks only ``DP`` as requiring grad, so the encoders record no graph and
 their backward never runs (the JAX trainer gets the same from XLA's dead-code
 elimination). The two phases draw their own dropout and DP noise, one after
 the other, from the epoch's generator, as ``k1``/``k2`` do in the JAX step.
+``Trainer.fit`` runs the epochs with the legacy records and the best-F1
+checkpoint (trainer.py:655-777 there).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import signal
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..data.datasets import epoch_indices, gather_batch
+from ..data.datasets import MultiModalArrays, epoch_indices, gather_batch
 from ..models import fusion
 from ..ops.optim import Adam
 from ..utils.device import resolve_device
 from ..utils.seeding import DEFAULT_SEED, derive_seed, generator
-from ..utils.trees import tree_items, tree_map_with_path
+from ..utils.trees import tree_items, tree_map, tree_map_with_path
+from . import checkpoint as ckpt
 from . import metrics as M
+from .records import RunRecorder
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    """The JAX package's ``TrainConfig`` (trainer.py:43-140 there), with its
+    names and defaults. The fields this port does not run yet refuse any
+    value but the faithful f32 one, naming the ROADMAP item that ports them;
+    none is ignored."""
+
     batch_size: int = 8  # ref: base_train.py:49
     learning_rate: float = 1e-6  # ref: base_train.py:50
+    epochs: int = 50  # ref: base_train.py:51
     seed: int = DEFAULT_SEED  # ref: base_train.py:43
+    f1_best_init: float = 0.5  # ref: base_train.py:164
+    compute_dtype: str = "float32"
+    shuffle_eval: bool = False
+    n_eval: int = 1
+    share_phase_dropout: bool = False
+    reuse_phase_features: Optional[bool] = None
+    adam_mu_dtype: str = "float32"
+    adam_nu_dtype: str = "float32"
+    precast_params: bool = False
+    paired_phase_encode: bool = False
+    # Write the best-F1 checkpoint once, at the end of fit(), from a
+    # device-side copy of the best params, instead of on every improvement
+    # (the same final file as the reference's per-improvement torch.save,
+    # base_train.py:251). False writes on every improvement.
+    defer_best_checkpoint: bool = True
+    # With deferral on, flush a pending best to disk every N epochs, so a
+    # run killed mid-loop keeps a recent best artifact. 0 = only at the end.
+    defer_flush_epochs: int = 20
+
+    def __post_init__(self):
+        fast = [f for f in ("share_phase_dropout", "reuse_phase_features",
+                            "paired_phase_encode", "precast_params") if getattr(self, f)]
+        waits = [
+            (self.compute_dtype != "float32", f"compute_dtype={self.compute_dtype!r}", 1),
+            ((self.adam_mu_dtype, self.adam_nu_dtype) != ("float32", "float32"),
+             "bf16 Adam moments", 1),
+            (bool(fast), f"the fast modes {fast}", 2),
+            (self.n_eval != 1, f"n_eval={self.n_eval}", 3),
+            (self.shuffle_eval, "shuffle_eval", 3),
+        ]
+        for bad, what, item in waits:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP.md, Next, item {item})")
 
 
 def _is_model(path: str) -> bool:
@@ -104,6 +150,11 @@ class StepFunctions:
         model_os = self.model_opt.update(model_leaves, list(grads), model_os)
         return dp_os, model_os, loss.detach(), acc.detach()
 
+    def cycle(self, *args, **kwargs):
+        """K train+eval epochs as one device program (trainer.py:550 of the
+        JAX package): not ported yet."""
+        raise NotImplementedError("cycle is not ported yet (ROADMAP.md, Next, item 3)")
+
     def train_epoch(self, params, dp_os, model_os, data, idx, weight, epsilon, gen):
         """Every batch of ``idx`` once; returns (dp_os, model_os, mean loss,
         mean accuracy), the means of batch means (base_train.py:239-242)
@@ -143,16 +194,22 @@ class Trainer:
     stochastic eval epoch, F1. Runs on the card unless ``device="cpu"``."""
 
     def __init__(self, fusion_cfg: fusion.FusionConfig,
-                 train_cfg: TrainConfig = TrainConfig(), params=None, device=None):
+                 train_cfg: TrainConfig = TrainConfig(), params=None, bert_params=None,
+                 device=None):
         self.device = resolve_device(device)
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
         if params is None:
             params = fusion.init(fusion_cfg, derive_seed(train_cfg.seed, "init"),
-                                 self.device)
+                                 self.device, bert_params=bert_params)
         self.params = params
         self.steps = StepFunctions(fusion_cfg, train_cfg, self.device)
         self.dp_os, self.model_os = self.steps.init_opt_states(params)
+
+    def export_params(self, params=None):
+        """Params for checkpoint export: ``params`` (by default the live
+        tree) as it is, since the port has no compact vocab yet."""
+        return self.params if params is None else params
 
     def run_epoch(self, epoch: int, train_dev, test_dev, n_train: int,
                   n_test: int, epsilon: float) -> Dict[str, Any]:
@@ -182,3 +239,92 @@ class Trainer:
             epoch=epoch + 1, train_loss=tr_loss, train_acc=tr_acc,
             test_loss=te_loss, test_acc=te_acc, f1=f1, time_cost=time.time() - t0,
         )
+
+    def fit(self, train_data: MultiModalArrays, test_data: MultiModalArrays,
+            epsilon: float, log_path: Optional[str] = None,
+            model_path: Optional[str] = None, echo: bool = True,
+            epoch_end_hook=None) -> Dict[str, Any]:
+        """Train ``epochs`` epochs (base_train.py:175-255): each epoch's
+        legacy record to ``log_path``, and the best-F1 params to
+        ``model_path`` in the reference's state-dict format. Returns
+        ``{"history", "best", "f1_best"}``.
+
+        With ``defer_best_checkpoint`` an improvement takes a device-side
+        copy of the params; the copy goes to disk every
+        ``defer_flush_epochs`` epochs and at the end, inside ``finally``, at
+        exit and on SIGTERM, so a run that stops keeps its best.
+        """
+        cfg = self.train_cfg
+        recorder = RunRecorder(log_path, echo=echo) if log_path else None
+        train_dev = train_data.to_device(self.device)
+        test_dev = test_data.to_device(self.device)
+        n_train, n_test = len(train_data), len(test_data)
+        f1_best = cfg.f1_best_init
+        best_record = None
+        history = []
+        pending = {"params": None}  # a best not yet on disk
+
+        def write_best(params):
+            ckpt.save_torch_checkpoint(model_path, self.export_params(params), self.fusion_cfg)
+
+        def flush_pending(*_args):
+            p, pending["params"] = pending["params"], None
+            if p is not None and model_path:
+                write_best(p)
+
+        # The reference persists every improvement (base_train.py:251);
+        # deferral must not lose the pending best when the process ends:
+        # atexit covers a normal exit, a SIGTERM handler (flush, then the
+        # previous disposition) covers a kill. Handlers install only from
+        # the main thread.
+        atexit.register(flush_pending)
+        prev_term = None
+        try:
+            prev_term = signal.getsignal(signal.SIGTERM)
+
+            def on_term(signum, frame):
+                flush_pending()
+                signal.signal(signal.SIGTERM,
+                              prev_term if prev_term is not None else signal.SIG_DFL)
+                signal.raise_signal(signal.SIGTERM)
+
+            signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # not the main thread
+            prev_term = None
+
+        try:
+            for epoch in range(cfg.epochs):
+                row = self.run_epoch(epoch, train_dev, test_dev, n_train, n_test, epsilon)
+                history.append(row)
+                rec = None
+                if recorder:
+                    rec = recorder.epoch(epoch, row["train_loss"], row["train_acc"],
+                                         row["test_loss"], row["test_acc"], row["f1"],
+                                         row["time_cost"])
+                if row["f1"] > f1_best:
+                    f1_best = row["f1"]
+                    best_record = row
+                    if model_path:
+                        if cfg.defer_best_checkpoint:
+                            pending["params"] = tree_map(torch.clone, self.params)
+                        else:
+                            write_best(self.params)
+                    if rec:
+                        recorder.best_record(rec)
+                if (pending["params"] is not None and cfg.defer_flush_epochs
+                        and (epoch + 1) % cfg.defer_flush_epochs == 0):
+                    flush_pending()
+                if epoch_end_hook is not None:
+                    epoch_end_hook(epoch)
+        finally:
+            # inside finally, so an exception or KeyboardInterrupt still
+            # writes the pending best
+            flush_pending()
+            atexit.unregister(flush_pending)
+            if prev_term is not None:
+                try:
+                    signal.signal(signal.SIGTERM, prev_term)
+                except ValueError:
+                    pass
+
+        return {"history": history, "best": best_record, "f1_best": f1_best}

@@ -45,7 +45,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = port_modules()
-    assert "eeg_multimodal_torch.ops.dp_fused" in mods
+    assert {"eeg_multimodal_torch.ops.dp_fused", "eeg_multimodal_torch.ops.attention",
+            "eeg_multimodal_torch.train.api"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,6 +62,7 @@ def test_entry_points_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device resolves to it")
     from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train.api import TrainAndTest
     from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig, Trainer
 
     cfg = fusion.config_for("ti", "lapacian_dropout")
@@ -70,5 +72,27 @@ def test_entry_points_refuse_to_run_without_a_card():
         StepFunctions(cfg, TrainConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fusion.init(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainAndTest(compute_dtype="float32")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_attention_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises; it never computes the plain
+    version itself (only ``fused_attention`` takes that path, on CPU
+    tensors). It raises before anything is built."""
+    from eeg_multimodal_torch.ops import attention as A
+
+    q = torch.zeros(1, 2, 8, 64)
+    bias, seed = torch.zeros(1, 8), torch.zeros(1, dtype=torch.int64)
+    stats = torch.zeros(2, 1, 2, 8)
+    launches = [k.launches for k in A.KERNELS]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        A.attn_fwd(q, q, q, bias, seed, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        A.attn_bwd(q, q, q, bias, seed, 0.1, q, stats, q)
+    with pytest.raises(ValueError, match="CUDA seed"):
+        A.attn_dropout_mask(seed, 1, 2, 8, 0.1)
+    assert [k.launches for k in A.KERNELS] == launches
+    assert A._lib.cache_info().currsize == 0  # nothing was built
