@@ -5,9 +5,11 @@
 
 Builds the port's kernels from this checkout: the Triton DP block (forward
 and backward) and, with nvcc, the CUDA C++ attention library (forward,
-backward, and the dropout-mask test hook). Holds each kernel against its
-plain PyTorch version. Then drives the two main paths at full width
-(BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8, f32):
+backward on the tensor cores, and the dropout-mask test hook). Holds each
+kernel against its plain PyTorch version (the attention mask bit for bit
+against ``keep_mask_plain``), and a 2-layer BERT at S = 512 on the card
+against the CPU. Then drives the two main paths at full width (BERT-base,
+3-layer cross-attention decoder, F = 2304, batch 8, f32):
 
 1. the flagship TICA_LapDropout fused-DP trainer at the truncated S = 80,
    two train+eval epochs through ``Trainer.run_epoch``;
@@ -36,11 +38,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s and
-# dense bf16 tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s,
+# dense bf16 tensor-core FLOP/s, and the f32 rate of the attention kernels'
+# error-compensated 3xTF32 products (three TF32 passes at 495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32X3_OPS_PER_S = 495e12 / 3
 # Approximate operations per element of the DP kernels (Philox: 10 rounds
 # of integer multiplies and xors dominate; the float work is ~20)
 OPS_PER_ELEM = {"dp_fwd": 80, "dp_bwd": 100}
@@ -141,20 +145,21 @@ def dp_bound_ms(name, B, F):
     return _bound(nbytes, OPS_PER_ELEM[name] * B * F, F32_OPS_PER_S)
 
 
-def attn_bound_ms(name, B, H, S, D, itemsize):
+def attn_bound_ms(name, B, H, S, D, itemsize, f32_ops_per_s=TF32X3_OPS_PER_S):
     """Least time on the card for attention at (B, H, S, D): bytes (q, k, v
     read and out written, plus dO and out read and dq, dk, dv written for
     the backward; the bias, the seed and the (2, B, H, S) row statistics)
     against the matrix products' operations (4 B H S^2 D forward; 10 B H S^2
-    D backward, the scores recomputed) at the f32 CUDA-core or the bf16
-    tensor-core peak. The exponentials and the mask's integer work are not
-    counted."""
+    D backward, the scores recomputed) at the tensor-core rate the kernels
+    use: 3xTF32 (495 / 3 TFLOP/s) for f32, bf16 for bf16.
+    ``f32_ops_per_s=F32_OPS_PER_S`` gives the bound of the first,
+    CUDA-core design. The exponentials and the mask's integer work are not counted."""
     bhsd, small = B * H * S * D * itemsize, B * S * 4 + 8 + 2 * B * H * S * 4
     if name == "attn_fwd":
         nbytes, ops = 4 * bhsd + small, 4 * B * H * S * S * D
     else:
         nbytes, ops = 8 * bhsd + small, 10 * B * H * S * S * D
-    return _bound(nbytes, ops, F32_OPS_PER_S if itemsize == 4 else BF16_OPS_PER_S)
+    return _bound(nbytes, ops, f32_ops_per_s if itemsize == 4 else BF16_OPS_PER_S)
 
 
 def print_rows(rows, steps):
@@ -208,10 +213,18 @@ def profile_step(torch, step, label, flops):
 
 def check_attention_kernels(torch, A, gen, dev):
     """Attention kernels against their plain versions; returns the max
-    errors of the forward and the backward."""
-    err = {"attn_fwd": 0.0, "attn_bwd": 0.0}
-    cases = [(2, 3, 80, 64, torch.float32), (8, 12, 512, 64, torch.float32),
-             (1, 2, 512, 128, torch.float32), (8, 12, 512, 64, torch.bfloat16)]
+    errors of the forward and the backward (f32, and bf16 under
+    "<name> bf16")."""
+    err = {"attn_fwd": 0.0, "attn_bwd": 0.0, "attn_fwd bf16": 0.0, "attn_bwd bf16": 0.0}
+    for S in (80, 512):  # the kernels' mask is keep_mask_plain's, bit for bit
+        seed = torch.tensor([2 ** 40 + S], dtype=torch.int64, device=dev)
+        card = A.attn_dropout_mask(seed, 2, 3, S, ATTN_DROP).bool()
+        check(torch.equal(card, A.keep_mask_plain(2 ** 40 + S, 2, 3, S, ATTN_DROP, dev)),
+              f"attn_dropout_mask differs from keep_mask_plain at S = {S}")
+    print("  attn_dropout_mask equals keep_mask_plain at S = 80 and 512")
+    cases = [(2, 3, 80, 64, torch.float32), (8, 12, 128, 64, torch.float32),
+             (8, 12, 512, 64, torch.float32), (1, 2, 512, 128, torch.float32),
+             (2, 3, 80, 64, torch.bfloat16), (8, 12, 512, 64, torch.bfloat16)]
     for B, H, S, D, dtype in cases:
         f32 = dtype == torch.float32
         fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
@@ -239,9 +252,9 @@ def check_attention_kernels(torch, A, gen, dev):
                 torch.testing.assert_close(g.float(), pg.float(), **bwd_tol,
                                            msg=lambda m: f"d{name}: {m}")
                 e_bwd = max(e_bwd, float((g.float() - pg.float()).abs().max()))
-            if f32:
-                err["attn_fwd"] = max(err["attn_fwd"], e_fwd)
-                err["attn_bwd"] = max(err["attn_bwd"], e_bwd)
+            tag = "" if f32 else " bf16"
+            err["attn_fwd" + tag] = max(err["attn_fwd" + tag], e_fwd)
+            err["attn_bwd" + tag] = max(err["attn_bwd" + tag], e_bwd)
             check(torch.equal(out, A.attn_fwd(q, k, v, bias, seed, rate)[0]),
                   "the same seed gives another output")
             if rate:
@@ -262,7 +275,33 @@ def check_attention_kernels(torch, A, gen, dev):
     frac = float(A.attn_dropout_mask(seed, 8, 12, 512, ATTN_DROP).float().mean())
     print(f"  keep fraction over 8*12*512*512 = {8 * 12 * 512 * 512} draws: {frac:.6f}")
     check(abs(frac - (1 - ATTN_DROP)) <= 1e-3, f"keep fraction {frac} off {1 - ATTN_DROP}")
+    print("  max errors: f32 fwd {attn_fwd:.3g}, grads {attn_bwd:.3g}; bf16 fwd "
+          "{attn_fwd bf16:.3g}, grads {attn_bwd bf16:.3g} (CUDA-core design: f32 2.98e-7 / "
+          "4.77e-7, bf16 1.95e-3 / 7.81e-3)".format_map(err))
     return err
+
+
+def check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev):
+    """A 2-layer BERT at S = 512 on 2 rows, dropout off: the card (through
+    the attention kernels) against the CPU (their plain versions), at the
+    JAX fused-branch test's tolerance."""
+    cfg = bert_mod.BertConfig(num_layers=2)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    params = bert_mod.init(gen, cfg, "cpu")
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512))).long()
+    mask = torch.ones(2, 512, dtype=torch.int64)
+    mask[0, VALID_TOKENS:] = 0
+    before = A.attn_fwd.launches
+    with torch.no_grad():
+        on_card = bert_mod.apply(tree_map(lambda t: t.to(dev), params), ids.to(dev),
+                                 mask.to(dev), cfg)
+        on_cpu = bert_mod.apply(params, ids, mask, cfg)
+    check(A.attn_fwd.launches - before == cfg.num_layers,
+          "the card's BERT did not go through the attention kernel")
+    for name, a, b in zip(("sequence", "pooled"), on_card, on_cpu):
+        print(f"  {name} output max|card - cpu| {float((a.cpu() - b).abs().max()):.3g}")
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
 
 
 def main():
@@ -378,6 +417,9 @@ def main():
     t0 = time.time()
     err.update(check_attention_kernels(torch, A, gen, dev))
     print(f"  (checks {time.time() - t0:.1f} s)")
+
+    phase("reference check: 2-layer BERT at S = 512, card (attention kernels) against CPU")
+    check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev)
 
     phase("main path 1: TICA_LapDropout fused-DP trainer, full width, S = 80")
     rng = np.random.RandomState(0)
@@ -611,11 +653,15 @@ def main():
             "bwd plain": sum(device_us(torch, plain_bwd, 10).values()),
         }
         bounds = {name: attn_bound_ms(name, B, H, S, D, 4) for name in ("attn_fwd", "attn_bwd")}
+        simt = {name: attn_bound_ms(name, B, H, S, D, 4, F32_OPS_PER_S)[0]
+                for name in ("attn_fwd", "attn_bwd")}
         print(f"  S = {S}: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in t.items()))
         print(f"  S = {S}: device time fwd {dev_t['fwd']:.1f} us, bwd {dev_t['bwd']:.1f} us, "
               f"plain fwd {dev_t['fwd plain']:.1f} us, plain bwd {dev_t['bwd plain']:.1f} us; "
-              f"bound fwd {bounds['attn_fwd'][0] * 1e3:.1f} us ({bounds['attn_fwd'][1]}), "
-              f"bwd {bounds['attn_bwd'][0] * 1e3:.1f} us ({bounds['attn_bwd'][1]})")
+              f"bound (3xTF32) fwd {bounds['attn_fwd'][0] * 1e3:.1f} us "
+              f"({bounds['attn_fwd'][1]}), bwd {bounds['attn_bwd'][0] * 1e3:.1f} us "
+              f"({bounds['attn_bwd'][1]}); CUDA-core f32 bound fwd {simt['attn_fwd'] * 1e3:.1f} "
+              f"us, bwd {simt['attn_bwd'] * 1e3:.1f} us")
         if S == 512:
             for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
                 kernels.append({

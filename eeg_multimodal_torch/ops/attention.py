@@ -13,11 +13,12 @@ and scaled by 1 / (1 - p), the JAX kernel's rule. The backward regenerates
 the mask from the seed instead of storing it.
 
 Beside them stand their plain PyTorch versions (``attention_plain``,
-``attention_bwd_plain``, with an explicit keep mask). The wrappers take them
-only for tensors on the CPU, where the mask comes from a ``torch.Generator``
-seeded with the seed. On a CUDA tensor they launch the kernels or raise. The
-card's mask is a Philox stream, not the TPU's bits nor JAX's threefry:
-compare distributions, or hand both sides the same mask.
+``attention_bwd_plain``, with an explicit keep mask, and
+``keep_mask_plain``, the kernels' exact mask). The wrappers take the plain
+versions only for tensors on the CPU, where the mask comes from a
+``torch.Generator`` seeded with the seed. On a CUDA tensor they launch the
+kernels or raise. The card's mask is a Philox stream, not the TPU's bits
+nor JAX's threefry: compare distributions, or hand both sides the same mask.
 """
 from __future__ import annotations
 
@@ -64,6 +65,67 @@ def seeded_keep(seed: int, shape, dropout_rate: float):
     backward, by the kernels' rule on torch's uniform 32-bit draws."""
     gen = torch.Generator().manual_seed(seed)
     return torch.bitwise_right_shift(random_bits(shape, gen), 8) < keep_threshold(dropout_rate)
+
+
+# Philox4x32-10 (Salmon et al., SC 2011; Random123's philox4x32 with 10
+# rounds), on int64 tensors holding 32-bit words
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a, m: int):
+    """(high, low) 32-bit words of a * m, a an int64 tensor of 32-bit words:
+    m is split in 16-bit halves so that no product passes 2^48."""
+    x, y = a * (m & 0xFFFF), a * (m >> 16)
+    return (y + (x >> 16)) >> 16, (x + ((y & 0xFFFF) << 16)) & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 of ``counter`` = (c0, c1, c2, c3) and ``key`` = (k0, k1),
+    each word an int64 tensor or int in [0, 2^32); returns the four output
+    words as int64 tensors. The kernels' ``philox4x32_10`` with c2 = c3 = 0."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def mask_groups(S: int):
+    """The kernels' grouping of a head's (S, S) mask, as (S, S) int64
+    tensors (i0, j0, word): element (i, j) takes word ``word`` of the Philox
+    call at counter ((b H + h) S + i0) S + j0, with i0 = (i & ~15) | (i & 7)
+    and j0 = j & ~1. A call serves rows {i0, i0 + 8} x columns {j0, j0 + 1},
+    the four elements one thread holds in an m16n8 C fragment."""
+    i = torch.arange(S, dtype=torch.int64)[:, None]
+    j = torch.arange(S, dtype=torch.int64)[None, :]
+    i0 = ((i & ~15) | (i & 7)).expand(S, S)
+    j0 = (j & ~1).expand(S, S)
+    return i0, j0, 2 * ((i >> 3) & 1) + (j & 1)
+
+
+def keep_mask_plain(seed: int, B: int, H: int, S: int, dropout_rate: float, device="cpu"):
+    """The kernels' exact keep mask for (B, H, S, S), as bool: Philox4x32-10
+    keyed by the 64-bit ``seed``, grouped as :func:`mask_groups` says, kept
+    where ``(bits >> 8) < (1 - p) 2^24``. A function of (seed, b, h, i, j)
+    alone; the forward, both backward kernels and ``attn_dropout_mask`` draw
+    this mask on the card."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    i0, j0, word = (x.to(device) for x in mask_groups(S))
+    rows = i0[:, 0][(torch.arange(S, device=device) & 8) == 0]  # the distinct i0
+    cols = torch.arange(0, S, 2, dtype=torch.int64, device=device)
+    bh = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
+    counter = (bh * S + rows[None, :, None]) * S + cols[None, None, :]
+    words = torch.stack(philox4x32_10(
+        (counter & _MASK32, counter >> 32, 0, 0), (seed & _MASK32, seed >> 32)), dim=1)
+    # element (i, j) reads its group's word: row i0 is rows[pos], column j0 cols[j0 // 2]
+    pos = torch.searchsorted(rows, i0[:, 0].contiguous())
+    bits = words[:, word, pos[:, None], (j0[0] // 2)[None, :]]
+    return (bits >> 8).lt(keep_threshold(dropout_rate)).reshape(B, H, S, S)
 
 
 def _mask_shape(q):
@@ -163,6 +225,39 @@ def _check_seed(seed, device):
         raise ValueError(f"seed must be one int64 element on {device}")
 
 
+def _aligned(t) -> bool:
+    """Whether the data pointer and the (b, h, s) strides (of axes longer
+    than 1) of the (B, H, S, D) view ``t`` are multiples of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * size % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def vector_loadable(dout):
+    """``dout`` itself if the kernels' 16-byte loads can read it, else a
+    contiguous copy in fresh (aligned) memory. For the output gradient that
+    autograd hands the backward, which the caller never sees: q, k and v
+    are checked instead, never copied."""
+    if dout.stride(-1) == 1 and _aligned(dout):
+        return dout
+    return dout.clone(memory_format=torch.contiguous_format)
+
+
+def check_vector_loads(name, t):
+    """Raise unless the kernels' 16-byte loads can read ``t``, a (B, H, S, D)
+    view: a unit last stride, a data pointer and (b, h, s) strides (of axes
+    longer than 1) that are multiples of 16 bytes. The packed QKV views of
+    the BERT path are; nothing is copied to make another view so."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs a unit stride along D")
+    if not _aligned(t):
+        size = t.element_size()
+        raise ValueError(
+            f"{name}: the attention kernels load 16-byte vectors, so the data pointer and "
+            f"the (b, h, s) strides must be multiples of 16 bytes; got pointer % 16 = "
+            f"{t.data_ptr() % 16}, strides {tuple(t.stride()[:3])} of {size}-byte elements")
+
+
 def _check(q, k, v, bias, seed, dropout_rate, dout=None):
     if not q.is_cuda:
         raise ValueError("the attention kernels take CUDA tensors")
@@ -174,8 +269,7 @@ def _check(q, k, v, bias, seed, dropout_rate, dout=None):
             continue
         if tuple(t.shape) != (B, H, S, D) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must be {(B, H, S, D)} {q.dtype} on {q.device}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a unit stride along D")
+        check_vector_loads(name, t)
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not in {list(_DTYPES)}")
     if D not in HEAD_DIMS or min(B, H, S) == 0:
@@ -199,7 +293,8 @@ def _common_args(q, k, v, bias, seed, dropout_rate):
 
 def _launch_fwd(q, k, v, bias, seed, dropout_rate: float = 0.0):
     """Launch the forward kernel on CUDA tensors. q, k, v: (B, H, S, D)
-    views with a unit last stride; bias (B, S) f32; seed one int64 element.
+    views that :func:`check_vector_loads` accepts; bias (B, S) f32; seed one
+    int64 element.
     Returns (out, stats): out a (B, H, S, D) view of a (B, S, H, D) buffer;
     stats (2, B, H, S) f32, each row's softmax max m and sum l, for the
     backward."""
@@ -281,9 +376,7 @@ class _FusedAttention(torch.autograd.Function):
         rate = ctx.dropout_rate
         if dout.is_cuda:
             q, k, v, bias, seed, out, stats = ctx.saved_tensors
-            if dout.stride(-1) != 1:
-                dout = dout.contiguous()
-            dq, dk, dv = attn_bwd(q, k, v, bias, seed, rate, out, stats, dout)
+            dq, dk, dv = attn_bwd(q, k, v, bias, seed, rate, out, stats, vector_loadable(dout))
         else:
             q, k, v, bias, seed, *given = ctx.saved_tensors
             keep = given[0] if given else None
@@ -297,8 +390,9 @@ def fused_attention(q, k, v, bias, seed, dropout_rate: float = 0.0, keep=None):
     """softmax(q k^T / sqrt(D) + bias) v with prob dropout, one kernel each
     way on the card.
 
-    q, k, v : (B, H, S, D) f32 or bf16, any strides with a unit last one
-    (the packed QKV views go in without copies); bias : (B, S) or the JAX
+    q, k, v : (B, H, S, D) f32 or bf16, with a unit last stride and, on
+    the card, a data pointer and (b, h, s) strides that are multiples of 16
+    bytes (the packed QKV views go in without copies); bias : (B, S) or the JAX
     package's (B, 1, S) f32 additive key bias; seed : one int64 element on
     the same device, read in the kernel; dropout_rate in [0, 1). Returns
     (B, H, S, D), a view of a (B, S, H, D) buffer on the card. ``keep``

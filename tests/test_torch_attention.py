@@ -138,3 +138,105 @@ def test_bert_apply_at_512_tokens_matches_jax_fused_branch():
                            TB.BertConfig(**cfg))
     np.testing.assert_allclose(seq.numpy(), np.asarray(j_seq), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(pooled.numpy(), np.asarray(j_pooled), rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' dropout mask, in its plain form (keep_mask_plain)
+# ---------------------------------------------------------------------------
+
+MASK32 = 0xFFFFFFFF
+
+
+def philox_py(counter, key):
+    """Philox4x32-10 on Python ints, written from the paper's round function."""
+    c, (k0, k1) = list(counter), key
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [((p1 >> 32) ^ c[1] ^ k0) & MASK32, p1 & MASK32,
+             ((p0 >> 32) ^ c[3] ^ k1) & MASK32, p0 & MASK32]
+        k0, k1 = (k0 + 0x9E3779B9) & MASK32, (k1 + 0xBB67AE85) & MASK32
+    return c
+
+
+@pytest.mark.parametrize("counter, key, want", [
+    # Random123's known-answer vectors (kat_vectors, philox4x32 with 10 rounds)
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((MASK32,) * 4, (MASK32,) * 2, (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_matches_the_random123_known_answers(counter, key, want):
+    assert tuple(int(w) for w in TA.philox4x32_10(counter, key)) == want
+    assert tuple(philox_py(counter, key)) == want
+
+
+@pytest.mark.parametrize("S", [21, 80])
+def test_each_philox_call_serves_exactly_its_four_elements(S):
+    """Element (i, j) reads word w of the call at (i0, j0); every (call, word)
+    pair is used once, and a call's elements are rows {i0, i0 + 8} x columns
+    {j0, j0 + 1} (inside S x S): the four one thread holds in a C fragment."""
+    i0, j0, word = (x.numpy() for x in TA.mask_groups(S))
+    i, j = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    assert ((i0 & 8) == 0).all() and (j0 % 2 == 0).all() and ((word >= 0) & (word < 4)).all()
+    np.testing.assert_array_equal(i, i0 + 8 * (word >> 1))
+    np.testing.assert_array_equal(j, j0 + (word & 1))
+    pairs = set(zip((i0 * S + j0).ravel().tolist(), word.ravel().tolist()))
+    assert len(pairs) == S * S
+
+
+def test_keep_mask_plain_is_the_grouped_philox_of_each_element():
+    B, H, S, seed, rate = 2, 2, 21, 2 ** 33 + 5, 0.1
+    got = TA.keep_mask_plain(seed, B, H, S, rate).numpy()
+    threshold = int((1.0 - rate) * (1 << 24))
+    want = np.zeros((B, H, S, S), bool)
+    for b in range(B):
+        for h in range(H):
+            for i in range(S):
+                for j in range(S):
+                    i0, j0 = (i & ~15) | (i & 7), j & ~1
+                    counter = ((b * H + h) * S + i0) * S + j0
+                    words = philox_py((counter & MASK32, counter >> 32, 0, 0),
+                                      (seed & MASK32, seed >> 32))
+                    want[b, h, i, j] = (words[2 * ((i >> 3) & 1) + (j & 1)] >> 8) < threshold
+    np.testing.assert_array_equal(got, want)
+
+
+def test_keep_mask_plain_statistics_and_seeds():
+    B, H, S, rate = 2, 4, 256, 0.1
+    keep = TA.keep_mask_plain(7, B, H, S, rate)
+    n = keep.numel()  # 524288 draws: 7 sigma = 7 sqrt(p (1 - p) / n) = 2.9e-3
+    assert abs(float(keep.float().mean()) - (1 - rate)) < 7 * np.sqrt(rate * (1 - rate) / n)
+    assert torch.equal(keep, TA.keep_mask_plain(7, B, H, S, rate))
+    assert not torch.equal(keep, TA.keep_mask_plain(8, B, H, S, rate))
+    # the seed's high 32 bits are the key's second word
+    assert not torch.equal(keep, TA.keep_mask_plain(7 + 2 ** 32, B, H, S, rate))
+    assert bool(TA.keep_mask_plain(7, B, H, S, 0.0).all())
+
+
+def test_kernels_refuse_views_their_16_byte_loads_cannot_read():
+    B, S, H, D = 2, 16, 3, 64
+    packed = torch.zeros(B, S, 3 * H * D)  # the BERT path's packed QKV
+    q = packed[..., :H * D].reshape(B, S, H, D).transpose(1, 2)
+    TA.check_vector_loads("q", q)  # row stride 3 H D floats: accepted
+    TA.check_vector_loads("q", packed[..., H * D:2 * H * D].reshape(B, S, H, D).transpose(1, 2))
+    buf = torch.zeros(B * H * S * D + 1)
+    with pytest.raises(ValueError, match="16 bytes"):  # pointer off by 4 bytes
+        TA.check_vector_loads("q", buf[1:].reshape(B, H, S, D))
+    odd = torch.zeros(B, H, S, D + 1)[..., :D]  # row stride 65 floats
+    with pytest.raises(ValueError, match="16 bytes"):
+        TA.check_vector_loads("k", odd)
+    with pytest.raises(ValueError, match="unit stride"):
+        TA.check_vector_loads("v", q.transpose(2, 3))
+
+
+def test_backward_realigns_an_output_gradient_the_16_byte_loads_cannot_read():
+    B, H, S, D = 2, 3, 16, 64
+    buf = torch.arange(B * H * S * D + 1, dtype=torch.float32)
+    aligned = buf[:-1].reshape(B, H, S, D)
+    assert TA.vector_loadable(aligned) is aligned  # no copy when none is needed
+    shifted = buf[1:].reshape(B, H, S, D)  # unit strides, pointer off by 4 bytes
+    expanded = torch.ones(()).expand(B, H, S, D)  # what sum().backward() hands on
+    for dout in (shifted, expanded, aligned.transpose(2, 3)):
+        got = TA.vector_loadable(dout)
+        TA.check_vector_loads("dout", got)
+        assert torch.equal(got, dout)
