@@ -3,26 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from this checkout: the Triton DP block (forward
-and backward) and, with nvcc, the CUDA C++ attention library (forward,
-backward on the tensor cores, and the dropout-mask test hook). Holds each
-kernel against its plain PyTorch version (the attention mask bit for bit
-against ``keep_mask_plain``), and a 2-layer BERT at S = 512 on the card
-against the CPU. Then drives the two main paths at full width (BERT-base,
-3-layer cross-attention decoder, F = 2304, batch 8, f32):
+Builds the port's CUDA C++ kernels from this checkout with one nvcc call
+(the DP block, forward and backward; attention, forward, backward on the
+tensor cores and the dropout-mask test hook) and holds each against its
+plain PyTorch version: the DP forward bit for bit where the card's math
+library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
+attention mask bit for bit against ``keep_mask_plain``; and a 2-layer BERT
+at S = 512 on the card against the CPU. Then drives the two main paths at
+full width (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8,
+f32):
 
 1. the flagship TICA_LapDropout fused-DP trainer at the truncated S = 80,
-   two train+eval epochs through ``Trainer.run_epoch``;
+   two train+eval epochs through ``Trainer.run_epoch``, where both DP
+   kernels and (the H100's gate) both attention kernels run;
 2. the untruncated 512-token trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
 
-checks that each path went through its kernels, profiles one train step of
-each, and times every kernel beside its bound, its plain version and, where
-one exists, the one PyTorch call that computes the same function. Exits
-non-zero on any failure; without a CUDA device it fails before printing any
-result. The last line is ``{"ok": true, "device": {...}}``.
+checks that each path went through its kernels and the fused path's logits
+on the card against the CPU with one DP seed, profiles one train step of
+each (at S = 80 with the attention gate open and closed), and times every
+kernel beside its bound, its plain version, an empty kernel's launch and,
+where one exists, the one PyTorch call that computes the same function.
+Exits non-zero on any failure; without a CUDA device it fails before
+printing any result. The last line is ``{"ok": true, "device": {...}}``.
 """
+import ctypes
 import dataclasses
 import json
 import math
@@ -48,11 +54,11 @@ TF32X3_OPS_PER_S = 495e12 / 3
 # Approximate operations per element of the DP kernels (Philox: 10 rounds
 # of integer multiplies and xors dominate; the float work is ~20)
 OPS_PER_ELEM = {"dp_fwd": 80, "dp_bwd": 100}
-SOURCES = {"dp_fwd": "eeg_multimodal_torch/ops/dp_fused.py",
-           "dp_bwd": "eeg_multimodal_torch/ops/dp_fused.py",
+SOURCES = {"dp_fwd": "eeg_multimodal_torch/csrc/dp_block.cu",
+           "dp_bwd": "eeg_multimodal_torch/csrc/dp_block.cu",
            "attn_fwd": "eeg_multimodal_torch/csrc/attention.cu",
            "attn_bwd": "eeg_multimodal_torch/csrc/attention.cu"}
-ROUTES = {"dp_fwd": "triton", "dp_bwd": "triton", "attn_fwd": "cuda", "attn_bwd": "cuda"}
+ROUTES = {"dp_fwd": "cuda", "dp_bwd": "cuda", "attn_fwd": "cuda", "attn_bwd": "cuda"}
 REPLACES = {"dp_fwd": "eeg_multimodal_tpu/ops/dp_pallas.py:63",
             "dp_bwd": "eeg_multimodal_tpu/ops/dp_pallas.py:76",
             "attn_fwd": "eeg_multimodal_tpu/ops/attention.py:42",
@@ -101,19 +107,22 @@ def time_ms(torch, fn, iters=200, reps=7):
 
 def device_us(torch, fn, n=50):
     """Device time per call of ``fn`` in us, by CUDA kernel name
-    (torch.profiler); empty when the profiler sees no device activity."""
+    (torch.profiler); empty when three sessions saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+    for _ in range(3):  # a session now and then reports no device events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+        if by_name:
+            break
     return by_name
 
 
@@ -345,9 +354,10 @@ def main():
     entry = ""
     for line in build_log.splitlines():  # ptxas -v: registers, shared memory, spills
         if "Compiling entry function" in line:
-            name = re.search(r"attn_\w+?kernel", line)
+            # the mangled name's length prefix, then the kernel's name
+            name = re.search(r"\d((?:attn|dp)_[a-z]+_kernel|empty_kernel)", line)
             targs = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
-            entry = (name.group(0) if name else "?") + (
+            entry = (name.group(1) if name else "?") + (
                 f"<{'f32' if targs.group(1) == 'f' else 'bf16'}, {targs.group(2)}>"
                 if targs else "")
         elif "Used" in line or re.search(r"[1-9]\d* bytes spill", line):
@@ -364,21 +374,22 @@ def main():
     def seed(s):
         return torch.tensor([s], dtype=torch.int64, device=dev)
 
-    phase("DP forward kernel against dp_block_plain")
+    phase("DP forward kernel against dp_block_plain with laplace_plain's noise")
     t0 = time.time()
-    for B, F in ((8, 2304), (5, 1000)):
+    for B, F in ((8, 2304), (5, 1000), (5, 1001)):  # 1001: groups of four cross rows
         f, dp = inputs(B, F)
         out = K.dp_fwd(f, dp, EPS, seed(1234))
-        noise = recover(out, f, dp, EPS)
-        check(bool(torch.isfinite(noise).all()), f"non-finite noise at {(B, F)}")
-        check(float(noise.abs().max()) <= LAPLACE_MAX, f"|noise| > ln(2^23) at {(B, F)}")
+        plain = K.dp_block_plain(f, dp, EPS, K.laplace_plain(1234, (B, F), dev))
+        torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+        e = float((out - plain).abs().max())
+        err["dp_fwd"] = max(err["dp_fwd"], e)
         check(torch.equal(out, K.dp_fwd(f, dp, EPS, seed(1234))), "not deterministic per seed")
         check(not torch.equal(out, K.dp_fwd(f, dp, EPS, seed(1235))), "seeds give equal noise")
-        plain = K.dp_block_plain(f, dp, EPS, noise)
-        torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
-        err["dp_fwd"] = max(err["dp_fwd"], float((out - plain).abs().max()))
-        print(f"  {(B, F)}: max|out - plain| {err['dp_fwd']:.3g}, max|noise| "
-              f"{float(noise.abs().max()):.3f}")
+        noise = recover(out, f, dp, EPS)  # the kernel's own noise
+        check(bool(torch.isfinite(noise).all()), f"non-finite noise at {(B, F)}")
+        check(float(noise.abs().max()) <= LAPLACE_MAX, f"|noise| > ln(2^23) at {(B, F)}")
+        print(f"  {(B, F)}: max|out - plain| {e:.3g} (bit for bit: {torch.equal(out, plain)}), "
+              f"max|noise| {float(noise.abs().max()):.3f}")
     f, dp = inputs(64, 2304)  # 147456 draws
     noise = recover(K.dp_fwd(f, dp, 1.0, seed(7)), f, dp, 1.0).double().cpu().numpy().ravel()
     qs = np.linspace(0.05, 0.95, 19)
@@ -386,19 +397,18 @@ def main():
     q_err = float(np.abs(np.quantile(noise, qs) - exact).max())
     print(f"  Laplace quantiles over {noise.size} draws: max error {q_err:.4f}; var {noise.var():.4f}")
     check(q_err <= 0.05, "noise quantiles off the Laplace(0, 1) closed form")
-    print(f"  (build + checks {time.time() - t0:.1f} s)")
+    print(f"  (checks {time.time() - t0:.1f} s)")
 
-    phase("DP backward kernel against dp_block_bwd_plain")
-    for B, F in ((8, 2304), (5, 1000)):
+    phase("DP backward kernel against dp_block_bwd_plain with laplace_plain's noise")
+    for B, F in ((8, 2304), (5, 1000), (5, 1001)):
         f, dp = inputs(B, F)
         # tied minima and maxima in row 0
         f[0, [3, 10]] = f[0].min() - 1.0
         f[0, [7, 20]] = f[0].max() + 1.0
         g = torch.randn(B, F, generator=gen, device=dev)
         s = seed(99)
-        noise = recover(K.dp_fwd(f, dp, EPS, s), f, dp, EPS)
         df, ddp = K.dp_bwd(f, dp, EPS, s, g)
-        df_p, ddp_p = K.dp_block_bwd_plain(f, dp, EPS, noise, g)
+        df_p, ddp_p = K.dp_block_bwd_plain(f, dp, EPS, K.laplace_plain(99, (B, F), dev), g)
         torch.testing.assert_close(df, df_p, rtol=2e-3, atol=1e-4)
         torch.testing.assert_close(ddp, ddp_p, rtol=2e-3, atol=1e-4)
         err["dp_bwd"] = max(err["dp_bwd"], float((df - df_p).abs().max()),
@@ -452,22 +462,36 @@ def main():
               "non-finite loss")
         check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1]")
     check(dp_changed, "DP did not change in the first epoch")
+    # the H100 attention gate takes S = 80: every BERT layer of both phases'
+    # forwards and of the eval forwards, and of the phase-2 backward
+    layers = fusion.config_for("ti", "lapacian_dropout").bert_cfg().num_layers
     want = {"dp_fwd": 2 * (2 * steps + eval_batches), "dp_bwd": 2 * 2 * steps,
-            "attn_fwd": 0, "attn_bwd": 0}
+            "attn_fwd": layers * (2 * steps + eval_batches) * 2, "attn_bwd": layers * steps * 2}
     check(launches_80 == want, f"launches {launches_80}, expected {want}")
 
-    phase("reference check: card against CPU on 2 rows")
-    fc_plain = dataclasses.replace(fc, fused_dp_kernel=False)
+    phase("reference check: card against CPU on 2 rows, composed and fused DP block")
     batch = D.gather_batch(test_dev, torch.arange(2, device=dev))
+    cpu_params = tree_map(torch.Tensor.cpu, trainer.params)
+    cpu_batch = tree_map(torch.Tensor.cpu, batch)
     noise = torch.randn(2, fc.concat_width, generator=gen, device=dev)
+    # out of training the fused path draws only the DP seed from its generator:
+    # a twin seeded alike gives that seed, and the CPU gets laplace_plain's noise of it
+    dp_seed = int(torch.randint(0, 2**31 - 1, (1,), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(17)))
     with torch.no_grad():
-        on_card = fusion.apply(trainer.params, batch, fc_plain, EPS, True, None, False, noise)
-        on_cpu = fusion.apply(tree_map(torch.Tensor.cpu, trainer.params),
-                              tree_map(torch.Tensor.cpu, batch), fc_plain, EPS, True,
-                              None, False, noise.cpu())
-    ref_err = float((on_card.cpu() - on_cpu).abs().max())
-    print(f"  logits max|card - cpu| {ref_err:.3g}")
-    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-4)
+        for name, cfg, card_kw, cpu_kw in (
+                ("composed", dataclasses.replace(fc, fused_dp_kernel=False),
+                 dict(gen=None, dp_noise=noise), dict(gen=None, dp_noise=noise.cpu())),
+                ("fused", fc, dict(gen=torch.Generator(device=dev).manual_seed(17)),
+                 dict(gen=None, dp_noise=K.laplace_plain(dp_seed, (2, fc.concat_width))))):
+            before = K.dp_fwd.launches
+            on_card = fusion.apply(trainer.params, batch, cfg, EPS, True, train=False, **card_kw)
+            check(K.dp_fwd.launches - before == (name == "fused"),
+                  f"the {name} DP block took the wrong path on the card")
+            on_cpu = fusion.apply(cpu_params, cpu_batch, cfg, EPS, True, train=False, **cpu_kw)
+            ref_err = float((on_card.cpu() - on_cpu).abs().max())
+            print(f"  {name} DP block: logits max|card - cpu| {ref_err:.3g}")
+            torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-4)
 
     def step_fn(tr, data):
         batch = D.gather_batch(data, torch.arange(tc.batch_size, device=dev))
@@ -478,13 +502,24 @@ def main():
             states[:] = tr.steps.train_step(tr.params, *states, batch, w, EPS, gen)[:2]
         return train_step
 
-    phase("profile: steady-state train step at S = 80 (device time by kernel)")
-    by_kernel = profile_step(torch, step_fn(trainer, train_dev), "S = 80",
-                             4 * forward_matmul_flops(tc.batch_size, 80))
-    if by_kernel:
-        dp_us = {k: v for k, v in by_kernel.items() if "dp_" in k and "kernel" in k}
-        print(f"  DP kernels in the step (us/step): {dp_us}")
-    del trainer, train_dev, test_dev
+    phase("profile: steady-state train step at S = 80, attention gate open and closed")
+    # closed: the unfused branch, as under the JAX package's gate (S >= 512);
+    # in turns (closed, open, open, closed), since the host's clock spreads
+    gate = A.attention_available
+    step_80 = step_fn(trainer, train_dev)
+    for label in ("closed", "open", "open", "closed"):
+        A.attention_available = gate if label == "open" else (lambda S, D: False)
+        try:
+            by_kernel = profile_step(torch, step_80, f"S = 80, gate {label}",
+                                     4 * forward_matmul_flops(tc.batch_size, 80))
+        finally:
+            A.attention_available = gate
+        if by_kernel:
+            dp_us = {k[:40]: round(v, 2) for k, v in by_kernel.items() if "dp_" in k}
+            attn = sum(v for k, v in by_kernel.items() if "attn_" in k)
+            print(f"  DP kernels in the step (us/step): {dp_us}; attention kernels "
+                  f"{attn:.1f} us/step")
+    del trainer, train_dev, test_dev, step_80
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
@@ -519,7 +554,6 @@ def main():
         check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
               "non-finite loss at S = 512")
         check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1] at S = 512")
-    layers = fusion.config_for("ti", "lapacian_dropout").bert_cfg().num_layers
     want = {"attn_fwd": layers * (2 * steps + eval_batches) * 2,
             "attn_bwd": layers * steps * 2, "dp_fwd": 0, "dp_bwd": 0}
     check(launches == want, f"launches {launches}, expected {want}")
@@ -569,24 +603,32 @@ def main():
     g = torch.randn(B, F, generator=gen, device=dev)
     s = seed(5)
 
-    def plain_noise():
-        return K.laplace_from_bits(K.random_bits((B, F), gen, dev))
+    lib = _build.library()[0]
+    lib.eeg_launch_floor.argtypes = [ctypes.c_void_p]
 
-    timed = {
+    def launch_floor():  # an empty kernel, launched through ctypes as the kernels are
+        _build.raise_on_error(lib.eeg_launch_floor(_build.current_stream(f.device)), "floor")
+
+    floor_ms = time_ms(torch, launch_floor)
+    floor_dev = sum(device_us(torch, launch_floor).values())
+    print(f"  launch floor (an empty kernel through ctypes): {floor_ms * 1e3:.2f} us (CUDA "
+          f"events over back-to-back calls); device time {floor_dev:.2f} us")
+    timed = {  # the plain versions draw the kernels' own noise, laplace_plain
         "dp_fwd": (lambda: K.dp_fwd(f, dp, EPS, s),
-                   lambda: K.dp_block_plain(f, dp, EPS, plain_noise())),
+                   lambda: K.dp_block_plain(f, dp, EPS, K.laplace_plain(5, (B, F), dev))),
         "dp_bwd": (lambda: K.dp_bwd(f, dp, EPS, s, g),
-                   lambda: K.dp_block_bwd_plain(f, dp, EPS, plain_noise(), g)),
+                   lambda: K.dp_block_bwd_plain(f, dp, EPS, K.laplace_plain(5, (B, F), dev), g)),
     }
     kernels = []
     for name, (kern, plain) in timed.items():
-        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain, 20, 5)
         bms, by = dp_bound_ms(name, B, F)
         dev_k = sum(device_us(torch, kern).values())
-        dev_p = sum(device_us(torch, plain).values())
+        dev_p = sum(device_us(torch, plain, 10).values())
         print(f"  {name}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (CUDA "
-              f"events over back-to-back calls); device time kernel {dev_k:.2f} us, plain "
-              f"{dev_p:.2f} us; bound {bms * 1e3:.4f} us ({by})")
+              f"events over back-to-back calls); device time kernel {dev_k:.2f} us "
+              f"({dev_k / floor_dev:.2f}x the launch floor), plain {dev_p:.2f} us; bound "
+              f"{bms * 1e3:.4f} us ({by})")
         kernels.append({
             "name": name, "route": ROUTES[name], "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches_80[name],

@@ -9,10 +9,11 @@ It imports neither JAX nor the JAX package.
                pairing, truncation, epoch batching
 - ``models`` : torch-semantics layers, BERT-base, the fusion model, and the
                conversion of the JAX package's parameter tree
-- ``ops``    : the DP mechanism; ``ops.dp_fused`` holds the Triton kernels of
-               the fused DP block, ``ops.attention`` wraps the CUDA C++
-               attention kernels of ``csrc/`` (built by ``ops._build``),
-               each forward and backward
+- ``ops``    : the DP mechanism; ``ops.dp_fused`` and ``ops.attention`` wrap
+               the CUDA C++ kernels of ``csrc/`` (the fused DP block and
+               attention, each forward and backward), which ``ops._build``
+               compiles with one nvcc call into one library; ``ops.philox``
+               is the plain twin of their random bits
 - ``train``  : loss and metrics, Adam, the alternating-optimizer trainer
                with ``fit``, legacy records, checkpoints, and the
                ``TrainAndTest`` API

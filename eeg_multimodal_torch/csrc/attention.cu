@@ -71,7 +71,7 @@
 //    dS from shared memory) and attn_dq_kernel (one block per 64 queries,
 //    looping over key tiles of 16). Both recompute s and p = exp(s - m) / l
 //    and regenerate the mask. Deterministic: no atomics.
-//  - dropout bits: Philox4x32-10 keyed by the seed, a one-element int64
+//  - dropout bits: Philox4x32-10 (philox.cuh) keyed by the seed, a one-element int64
 //    device tensor read here (no host sync). One call gives four words and
 //    serves the four elements one thread holds in a C fragment (keep_bits).
 //  - q, k, v and dO come in as (B, H, S, D) views with (b, h, s) strides
@@ -88,6 +88,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -338,23 +340,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld, int 
 // ---------------------------------------------------------------------------
 // The dropout mask
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint4 philox4x32_10(uint64_t counter, uint64_t seed) {
-  uint32_t c0 = (uint32_t)counter, c1 = (uint32_t)(counter >> 32), c2 = 0u, c3 = 0u;
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
 
 // The dropout mask: the one function the forward, both backward kernels and
 // the test hook call, so they agree bit for bit. One Philox4x32-10 call

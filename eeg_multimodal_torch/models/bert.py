@@ -80,10 +80,12 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
     """softmax(QK^T/sqrt(D) + bias) V over (B, H, S, D).
 
     The one dispatch point of self-attention, as ``bert.py:156-172`` of the
-    JAX package: where ``attention_available(S, D)`` (the untruncated
-    512-token path) the fused CUDA kernels run, with a dropout seed drawn
-    per layer from ``gen`` as a one-element device tensor (no host sync);
-    elsewhere (the flagship's truncated S = 80) the plain branch.
+    JAX package: where ``attention_available(S, D)`` (on the H100 every S
+    at BERT's head width, the flagship's truncated S = 80 and the 512-token
+    path alike) the fused CUDA kernels run, with a dropout seed drawn per
+    layer from ``gen`` as a one-element device tensor (no host sync);
+    elsewhere (a head width the kernels are not built for) the plain
+    branch. The JAX package's gate sends S = 80 to its einsum branch.
     """
     S, D = q.shape[-2:]
     if fused.attention_available(S, D):

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 CACHE = os.path.join(os.path.dirname(_PKG), ".cache", "kernels")
@@ -75,3 +77,20 @@ def library():
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     log = open(log_path).read() if os.path.exists(log_path) else ""
     return ctypes.CDLL(lib), log, seconds
+
+
+def raise_on_error(err: int, name: str):
+    """Raise if a C function of the library returned a CUDA error code (each
+    returns ``cudaGetLastError()`` after its launches)."""
+    if err != 0:
+        fn = library()[0].eeg_cuda_error_string
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {err} ({fn(err).decode()})")
+
+
+def current_stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the pointer the C
+    functions take. Read with PyTorch's raw getter (the one its generated
+    kernel launchers call): it builds no ``torch.cuda.Stream`` object, the
+    costliest step of a launch through ``torch.cuda.current_stream()``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -30,25 +30,26 @@ import torch
 
 from . import _build
 from .dp_fused import KernelWrapper, random_bits
+from .philox import philox_words
 
 HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_available(S: int, D: int) -> bool:
-    """Whether self-attention at (S, D) dispatches to the kernels.
+    """Whether self-attention at (S, D) dispatches to the kernels: at every
+    S, for D in ``HEAD_DIMS`` (64 and 128, which hold every BERT head
+    width); at another D the plain branch runs.
 
-    The JAX package's gate (``ops/attention.py::attention_available``): S a
-    multiple of 128, at least 512, D a multiple of 64, and one head's scores
-    and operands under 8 MB; so both packages take the same branch at the
-    same shapes. The kernels are built for D in ``HEAD_DIMS``, which holds
-    every BERT head width (64); at another D the plain branch runs. The
-    gate came from TPU timings; the H100's is a later change, set from the
-    timings ``chip_smoke.py`` prints at S = 80, 128 and 512.
+    The H100's gate, set from ``chip_smoke.py``'s timings of the kernels
+    against the plain branch (forward + backward through autograd, 8 x 12
+    heads, f32, p = 0.1): the kernels were faster at S = 80, 128 and 512 in
+    every run (PERF.md). The JAX package's gate (S a multiple of 128, at
+    least 512, one head under 8 MB of VMEM) came from TPU timings; the
+    flagship's truncated S = 80 now runs the kernels here, and the plain
+    einsum branch there.
     """
-    vmem = S * S * 4 + 5 * S * D * 4
-    return (S % 128 == 0 and D % 64 == 0 and S >= 512 and vmem < 8 * 1024 * 1024
-            and D in HEAD_DIMS)
+    return S > 0 and D in HEAD_DIMS
 
 
 # ---------------------------------------------------------------------------
@@ -65,34 +66,6 @@ def seeded_keep(seed: int, shape, dropout_rate: float):
     backward, by the kernels' rule on torch's uniform 32-bit draws."""
     gen = torch.Generator().manual_seed(seed)
     return torch.bitwise_right_shift(random_bits(shape, gen), 8) < keep_threshold(dropout_rate)
-
-
-# Philox4x32-10 (Salmon et al., SC 2011; Random123's philox4x32 with 10
-# rounds), on int64 tensors holding 32-bit words
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_MASK32 = 0xFFFFFFFF
-
-
-def _mulhilo(a, m: int):
-    """(high, low) 32-bit words of a * m, a an int64 tensor of 32-bit words:
-    m is split in 16-bit halves so that no product passes 2^48."""
-    x, y = a * (m & 0xFFFF), a * (m >> 16)
-    return (y + (x >> 16)) >> 16, (x + ((y & 0xFFFF) << 16)) & _MASK32
-
-
-def philox4x32_10(counter, key):
-    """Philox4x32-10 of ``counter`` = (c0, c1, c2, c3) and ``key`` = (k0, k1),
-    each word an int64 tensor or int in [0, 2^32); returns the four output
-    words as int64 tensors. The kernels' ``philox4x32_10`` with c2 = c3 = 0."""
-    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
-    k0, k1 = key
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
-    return c0, c1, c2, c3
 
 
 def mask_groups(S: int):
@@ -114,17 +87,14 @@ def keep_mask_plain(seed: int, B: int, H: int, S: int, dropout_rate: float, devi
     where ``(bits >> 8) < (1 - p) 2^24``. A function of (seed, b, h, i, j)
     alone; the forward, both backward kernels and ``attn_dropout_mask`` draw
     this mask on the card."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     i0, j0, word = (x.to(device) for x in mask_groups(S))
     rows = i0[:, 0][(torch.arange(S, device=device) & 8) == 0]  # the distinct i0
     cols = torch.arange(0, S, 2, dtype=torch.int64, device=device)
     bh = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
-    counter = (bh * S + rows[None, :, None]) * S + cols[None, None, :]
-    words = torch.stack(philox4x32_10(
-        (counter & _MASK32, counter >> 32, 0, 0), (seed & _MASK32, seed >> 32)), dim=1)
+    words = philox_words((bh * S + rows[None, :, None]) * S + cols[None, None, :], seed)
     # element (i, j) reads its group's word: row i0 is rows[pos], column j0 cols[j0 // 2]
     pos = torch.searchsorted(rows, i0[:, 0].contiguous())
-    bits = words[:, word, pos[:, None], (j0[0] // 2)[None, :]]
+    bits = words[:, pos[:, None], (j0[0] // 2)[None, :], word]
     return (bits >> 8).lt(keep_threshold(dropout_rate)).reshape(B, H, S, S)
 
 
@@ -205,19 +175,7 @@ def _lib():
     lib.eeg_attn_dropout_mask.argtypes = [_I, _I, _I, _P, _I, _P, _P]
     for fn in (lib.eeg_attn_fwd, lib.eeg_attn_bwd, lib.eeg_attn_dropout_mask):
         fn.restype = _I
-    lib.eeg_cuda_error_string.argtypes = [_I]
-    lib.eeg_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        msg = _lib().eeg_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 def _check_seed(seed, device):
@@ -303,8 +261,8 @@ def _launch_fwd(q, k, v, bias, seed, dropout_rate: float = 0.0):
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     err = _lib().eeg_attn_fwd(*_common_args(q, k, v, bias, seed, dropout_rate),
-                              out.data_ptr(), stats.data_ptr(), _stream())
-    _raise_on(err, "attn_fwd")
+                              out.data_ptr(), stats.data_ptr(), _build.current_stream(q.device))
+    _build.raise_on_error(err, "attn_fwd")
     return out.transpose(1, 2), stats
 
 
@@ -326,8 +284,8 @@ def _launch_bwd(q, k, v, bias, seed, dropout_rate, out, stats, dout):
     err = _lib().eeg_attn_bwd(*_common_args(q, k, v, bias, seed, dropout_rate),
                               out.data_ptr(), stats.data_ptr(), dout.data_ptr(),
                               *dout.stride()[:3], delta.data_ptr(), dq.data_ptr(),
-                              dk.data_ptr(), dv.data_ptr(), _stream())
-    _raise_on(err, "attn_bwd")
+                              dk.data_ptr(), dv.data_ptr(), _build.current_stream(q.device))
+    _build.raise_on_error(err, "attn_bwd")
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
@@ -344,9 +302,9 @@ def attn_dropout_mask(seed, B: int, H: int, S: int, dropout_rate: float):
         raise ValueError("the mask kernel takes a CUDA seed")
     _check_seed(seed, seed.device)
     out = torch.empty((B, H, S, S), dtype=torch.uint8, device=seed.device)
-    err = _lib().eeg_attn_dropout_mask(B, H, S, seed.data_ptr(),
-                                       keep_threshold(dropout_rate), out.data_ptr(), _stream())
-    _raise_on(err, "attn_dropout_mask")
+    err = _lib().eeg_attn_dropout_mask(B, H, S, seed.data_ptr(), keep_threshold(dropout_rate),
+                                       out.data_ptr(), _build.current_stream(seed.device))
+    _build.raise_on_error(err, "attn_dropout_mask")
     return out
 
 

@@ -18,6 +18,7 @@ from eeg_multimodal_tpu.models import bert as JB
 from eeg_multimodal_tpu.ops import attention as JA
 from eeg_multimodal_torch.models import bert as TB
 from eeg_multimodal_torch.ops import attention as TA
+from philox_ref import MASK32, philox_py
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=1e-4)
@@ -109,12 +110,47 @@ def test_fully_masked_key_row_gives_the_uniform_softmax():
         np.testing.assert_allclose(a, b, **GRAD_TOL)
 
 
-def test_attention_available_is_the_jax_gate():
-    for S in (80, 100, 128, 256, 384, 512, 1024):
-        for D in (32, 48, 64, 128):
-            assert TA.attention_available(S, D) == JA.attention_available(S, D), (S, D)
-    assert TA.attention_available(512, 64) and not TA.attention_available(80, 64)
-    assert not TA.attention_available(512, 192)  # no kernel built for D = 192
+def test_attention_available_is_the_h100_gate():
+    """Every S, D in HEAD_DIMS: the flagship's truncated S = 80 runs the
+    kernels on the card, where the JAX gate (S >= 512) takes the einsum."""
+    for S in (1, 21, 80, 100, 128, 256, 384, 512, 1024):
+        for D in (32, 48, 64, 128, 192):
+            assert TA.attention_available(S, D) == (D in TA.HEAD_DIMS), (S, D)
+    assert TA.HEAD_DIMS == (64, 128)
+    assert TA.attention_available(80, 64) and not JA.attention_available(80, 64)
+    assert not TA.attention_available(0, 64)
+
+
+def test_bert_apply_at_80_tokens_takes_the_fused_branch_and_matches_jax(monkeypatch):
+    """BERT at the flagship's S = 80 goes through ``fused_attention`` (its
+    plain twin on the CPU), never the unfused branch, and still matches the
+    JAX package's einsum branch with dropout off (test_torch_layers.py's
+    tolerance for two layers)."""
+    cfg = dict(vocab_size=60, hidden_size=128, num_layers=2, num_heads=2,
+               intermediate_size=64, max_position_embeddings=80)
+    params = JB.init(jax.random.PRNGKey(1), JB.BertConfig(**cfg))
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 60, (2, 80)).astype(np.int32)
+    mask = np.ones((2, 80), np.int32)
+    mask[0, 65:] = 0
+    j_seq, j_pooled = JB.apply(params, jnp.asarray(ids), jnp.asarray(mask), JB.BertConfig(**cfg))
+    calls, fused_attention = [], TA.fused_attention
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return fused_attention(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the unfused branch ran at S = 80")
+
+    monkeypatch.setattr(TB.fused, "fused_attention", counted)
+    monkeypatch.setattr(TB, "attention_unfused", refused)
+    tparams = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), params)
+    seq, pooled = TB.apply(tparams, torch.from_numpy(ids).long(), torch.from_numpy(mask).long(),
+                           TB.BertConfig(**cfg))
+    assert calls == [(2, 2, 80, 64)] * 2
+    np.testing.assert_allclose(seq.numpy(), np.asarray(j_seq), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(j_pooled), rtol=1e-4, atol=1e-5)
 
 
 def test_bert_apply_at_512_tokens_matches_jax_fused_branch():
@@ -143,32 +179,6 @@ def test_bert_apply_at_512_tokens_matches_jax_fused_branch():
 # ---------------------------------------------------------------------------
 # The kernels' dropout mask, in its plain form (keep_mask_plain)
 # ---------------------------------------------------------------------------
-
-MASK32 = 0xFFFFFFFF
-
-
-def philox_py(counter, key):
-    """Philox4x32-10 on Python ints, written from the paper's round function."""
-    c, (k0, k1) = list(counter), key
-    for _ in range(10):
-        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
-        c = [((p1 >> 32) ^ c[1] ^ k0) & MASK32, p1 & MASK32,
-             ((p0 >> 32) ^ c[3] ^ k1) & MASK32, p0 & MASK32]
-        k0, k1 = (k0 + 0x9E3779B9) & MASK32, (k1 + 0xBB67AE85) & MASK32
-    return c
-
-
-@pytest.mark.parametrize("counter, key, want", [
-    # Random123's known-answer vectors (kat_vectors, philox4x32 with 10 rounds)
-    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
-    ((MASK32,) * 4, (MASK32,) * 2, (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
-    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
-     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
-])
-def test_philox_matches_the_random123_known_answers(counter, key, want):
-    assert tuple(int(w) for w in TA.philox4x32_10(counter, key)) == want
-    assert tuple(philox_py(counter, key)) == want
-
 
 @pytest.mark.parametrize("S", [21, 80])
 def test_each_philox_call_serves_exactly_its_four_elements(S):

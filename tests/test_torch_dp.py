@@ -1,10 +1,12 @@
-"""The port's DP block (ops/dp.py, ops/dp_fused.py) against the JAX package.
+"""The port's DP block (ops/dp.py, ops/dp_fused.py) and its noise
+(ops/philox.py) against the JAX package and against loops over elements.
 
-On the CPU the fused block runs its plain versions. JAX's threefry noise
-cannot be reproduced by the port, so the tests draw it the way
-``dp_pallas._reference_impl`` does and hand it across. Tolerances: forward
-rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol 1e-5 (f32, sums taken in
-another order).
+On the CPU the fused block runs its plain versions, with the kernels' exact
+noise (``laplace_plain``). JAX's threefry noise cannot be reproduced by the
+port, so the parity tests draw it the way ``dp_pallas._reference_impl``
+does and hand it across. Tolerances: forward rtol 1e-5 / atol 1e-5,
+gradients rtol 1e-4 / atol 1e-5 (f32, sums taken in another order); the
+noise and the CPU path's use of it are exact.
 """
 import math
 
@@ -18,6 +20,8 @@ from eeg_multimodal_tpu.ops import dp as jdp
 from eeg_multimodal_tpu.ops import dp_pallas as JK
 from eeg_multimodal_torch.ops import dp as tdp
 from eeg_multimodal_torch.ops import dp_fused as K
+from eeg_multimodal_torch.ops import philox as P
+from philox_ref import MASK32, philox_py
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -84,7 +88,7 @@ def test_fused_autograd_on_cpu_regenerates_noise_and_skips_unneeded_grads(need):
     d = t(dp).requires_grad_(need[1])
     seed = torch.tensor([17])
     out = K.fused_lap_dropout(f, d, 0.3, seed)
-    noise = K.seeded_noise(17, (6, 300))
+    noise = K.laplace_plain(17, (6, 300))
     torch.testing.assert_close(out, K.dp_block_plain(t(feat), t(dp), 0.3, noise))
     want_df, want_ddp = K.dp_block_bwd_plain(t(feat), t(dp), 0.3, noise, t(g))
     wanted = [x for x, n in zip((f, d), need) if n]
@@ -124,11 +128,14 @@ def test_laplace_from_bits_is_bounded_at_the_extreme_draws():
 
 
 def test_seeded_noise_is_laplace():
-    noise = K.seeded_noise(7, (64, 2048)).double().numpy().ravel()  # 131072 draws
+    """``laplace_plain``, the noise of the kernels and of the CPU path, is
+    Laplace(0, 1), finite and within ln 2^23."""
+    noise = K.laplace_plain(7, (64, 2048)).double().numpy().ravel()  # 131072 draws
     qs = np.linspace(0.05, 0.95, 19)
     exact = -np.sign(qs - 0.5) * np.log1p(-2 * np.abs(qs - 0.5))
     np.testing.assert_allclose(np.quantile(noise, qs), exact, atol=0.05)
     assert abs(noise.var() - 2.0) < 0.1
+    assert np.isfinite(noise).all() and np.abs(noise).max() <= math.log(2**23) + 1e-3
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
@@ -139,3 +146,51 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         K.dp_bwd(t(feat), t(dp), 0.5, torch.tensor([1]), t(g))
     assert (K.dp_fwd.launches, K.dp_bwd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The kernels' noise in its plain form (laplace_plain) and its Philox
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("counter, key, want", [
+    # Random123's known-answer vectors (kat_vectors, philox4x32 with 10 rounds)
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((MASK32,) * 4, (MASK32,) * 2, (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_matches_the_random123_known_answers(counter, key, want):
+    assert tuple(int(w) for w in P.philox4x32_10(counter, key)) == want
+    assert tuple(philox_py(counter, key)) == want
+
+
+@pytest.mark.parametrize("shape", [(3, 10), (2, 7)])
+def test_laplace_plain_is_the_grouped_philox_of_each_element(shape):
+    """Element n takes word n & 3 of the call at counter n & ~3, keyed by the
+    64-bit seed. F % 4 != 0 here, so groups of four cross row boundaries."""
+    seed = 2 ** 35 + 123
+    words = []
+    for n in range(math.prod(shape)):
+        g = n & ~3
+        words.append(philox_py((g & MASK32, g >> 32, 0, 0), (seed & MASK32, seed >> 32))[n & 3])
+    want = K.laplace_from_bits(torch.tensor(words, dtype=torch.int64)).reshape(shape)
+    assert torch.equal(K.laplace_plain(seed, shape), want)
+    # a function of (seed, n) alone: the rows of a taller draw hold the same noise
+    taller = K.laplace_plain(seed, (shape[0] + 2, shape[1]))
+    assert torch.equal(taller[:shape[0]], want)
+    assert not torch.equal(K.laplace_plain(seed + 2 ** 32, shape), want)  # the key's high word
+
+
+@pytest.mark.parametrize("shape,ties", [((3, 10), False), ((4, 64), True)])
+def test_fused_cpu_path_draws_exactly_laplace_plain(shape, ties):
+    """The CPU path of ``fused_lap_dropout`` draws ``laplace_plain(seed)``,
+    the card's noise, in the forward and again in the backward."""
+    feat, dp, g = inputs(*shape, seed=8, ties=ties)
+    seed = 2 ** 33 + 9
+    f, d = t(feat).requires_grad_(), t(dp).requires_grad_()
+    out = K.fused_lap_dropout(f, d, 0.4, torch.tensor([seed]))
+    noise = K.laplace_plain(seed, shape)
+    assert torch.equal(out, K.dp_block_plain(t(feat), t(dp), 0.4, noise))
+    df, ddp = torch.autograd.grad(out, (f, d), t(g))
+    want_df, want_ddp = K.dp_block_bwd_plain(t(feat), t(dp), 0.4, noise, t(g))
+    assert torch.equal(df, want_df) and torch.equal(ddp, want_ddp)

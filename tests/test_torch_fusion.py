@@ -16,6 +16,7 @@ from eeg_multimodal_tpu.models import fusion as JF
 from eeg_multimodal_torch.models import bert as TB
 from eeg_multimodal_torch.models import fusion as TF
 from eeg_multimodal_torch.models.convert import params_from_jax, params_to_numpy
+from eeg_multimodal_torch.ops import dp_fused
 from eeg_multimodal_torch.utils.trees import tree_items
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -146,3 +147,17 @@ def test_dp_noise_is_drawn_on_every_forward():
     assert not torch.equal(a, b)
     with pytest.raises(ValueError, match="generator"):
         TF.apply(params, batch, tc, 1.0, True, None, False)
+
+
+def test_fused_head_draws_laplace_plain_of_the_generators_seed():
+    """Out of training the fused path draws one thing from ``gen``, the DP
+    seed, and its noise is ``laplace_plain(seed)``, as on the card: a twin
+    generator recovers the seed, and the noise it gives reproduces the
+    logits exactly."""
+    _, tc = configs(True)
+    params = TF.init(tc, seed=3, device="cpu")
+    batch = to_port_batch(batch_np())
+    got = TF.apply(params, batch, tc, 1.0, True, torch.Generator().manual_seed(7), False)
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(7))
+    noise = dp_fused.laplace_plain(int(seed), (4, tc.concat_width))
+    assert torch.equal(got, TF.apply(params, batch, tc, 1.0, True, None, False, dp_noise=noise))

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no optax, nothing of the JAX
-package, and no quiet fallback to the CPU when the card is missing."""
+package, no Triton (its kernels are CUDA C++ built by nvcc), and no quiet
+fallback to the CPU when the card is missing."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "eeg_multimodal_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "eeg_multimodal_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "eeg_multimodal_tpu", "triton")
 
 
 def package_files():
