@@ -3,30 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA C++ kernels from this checkout with one nvcc call
-(the DP block, forward and backward; attention, forward, backward on the
-tensor cores and the dropout-mask test hook) and holds each against its
+Builds the port's CUDA C++ kernels from this checkout, one nvcc process
+per source, started together (the DP block, forward and backward;
+attention, forward, backward on the tensor cores and the dropout-mask test
+hook), and holds each against its
 plain PyTorch version: the DP forward bit for bit where the card's math
 library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
 attention mask bit for bit against ``keep_mask_plain``; and a 2-layer BERT
-at S = 512 on the card against the CPU. Then drives the two main paths at
-full width (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8,
-f32):
+at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
+stochastic rounding on the card. Then drives the main paths at full width
+(BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
 
-1. the flagship TICA_LapDropout fused-DP trainer at the truncated S = 80,
-   two train+eval epochs through ``Trainer.run_epoch``, where both DP
-   kernels and (the H100's gate) both attention kernels run;
-2. the untruncated 512-token trainer through
+1. the flagship TICA_LapDropout fused-DP trainer in f32 at the truncated
+   S = 80, two train+eval epochs through ``Trainer.run_epoch``, where both
+   DP kernels and (the H100's gate) both attention kernels run;
+3. ``TrainAndTest(epochs=2)`` at its default bf16 compute through
+   ``train_on(compact_vocab=True)`` at S = 80, where the bf16
+   instantiations of the attention kernels run; then ``bench.py``'s
+   configuration (bf16 compute, bf16 Adam moments with stochastic rounding,
+   ``precast_params``, compact vocab, composed DP) through ``Trainer.fit``,
+   writing and reloading a full-vocab best checkpoint;
+2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
 
-checks that each path went through its kernels and the fused path's logits
-on the card against the CPU with one DP seed, profiles one train step of
-each (at S = 80 with the attention gate open and closed), and times every
-kernel beside its bound, its plain version, an empty kernel's launch and,
-where one exists, the one PyTorch call that computes the same function.
-Exits non-zero on any failure; without a CUDA device it fails before
-printing any result. The last line is ``{"ok": true, "device": {...}}``.
+checks that each path went through its kernels (launches by dtype, the
+eval as one batched forward an epoch) and its logits on the card against
+the CPU (f32 with the composed and the fused DP block; bf16 at a bf16
+tolerance), profiles one train step of each (device time by kernel, the
+host's kernel launches and top host ops; at S = 80 with the attention gate
+open and closed, and bf16 with ``precast_params`` and with the in-step cast
+in turns with f32), times the eval epoch batched against the batch loop at
+601 rows, and times every kernel
+beside its bound, its plain version, an empty kernel's launch and, where
+one exists, the one PyTorch call that computes the same function. Exits
+non-zero on any failure; without a CUDA device it fails before printing any
+result. The last line is ``{"ok": true, "device": {...}}``.
 """
 import ctypes
 import dataclasses
@@ -72,6 +84,17 @@ NEG = float(np.finfo(np.float32).min)
 # f32: the JAX attention tests' own tolerances (tests/test_attention_kernel.py)
 ATTN_TOL = {"f32_fwd": dict(rtol=1e-4, atol=1e-5), "f32_bwd": dict(rtol=2e-3, atol=1e-4),
             "bf16": dict(rtol=2e-2, atol=2e-2)}
+# bf16 logits (max |logit| 0.26-0.76 at random init), card against CPU:
+# cuBLAS and the CPU's GEMMs may round at other points, so not bit for bit.
+# The limit sits between sound runs' readings (4.14e-5 and 6.81e-5 on an
+# H100) and the whole effect of bf16 on the logits (max |bf16 - f32| on the
+# card, 1.15e-3 to 2.01e-3): a forward off by half of bf16's own effect fails
+BF16_LOGIT_TOL = dict(rtol=0.0, atol=5e-4)
+# the host's kernel launches as the profiler names them (cudaLaunchKernel*,
+# and cuLaunchKernel*, through which cuBLAS launches), and its copies and syncs
+LAUNCH_API = re.compile(r"cu(da)?LaunchKernel")
+SYNC_API = re.compile(r"cuda(Memcpy|Memset|StreamSynchronize|DeviceSynchronize|EventSynchronize"
+                      r"|Malloc|Free)")
 
 
 def fail(msg):
@@ -105,9 +128,12 @@ def time_ms(torch, fn, iters=200, reps=7):
     return float(np.median(times))
 
 
-def device_us(torch, fn, n=50):
+def device_us(torch, fn, n=50, host=None):
     """Device time per call of ``fn`` in us, by CUDA kernel name
-    (torch.profiler); empty when three sessions saw no device activity."""
+    (torch.profiler); empty when three profiles saw no device activity.
+    ``host``, a dict, receives each host event's (calls, self us) per call
+    of ``fn`` (aten ops, autograd nodes, CUDA API calls) from the same
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -122,6 +148,10 @@ def device_us(torch, fn, n=50):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
         if by_name:
+            if host is not None:
+                for a in prof.key_averages():
+                    if a.device_type == torch.autograd.DeviceType.CPU:
+                        host[a.key] = (a.count / n, a.self_cpu_time_total / n)
             break
     return by_name
 
@@ -193,8 +223,9 @@ def synth_rows(D, rng, n, seq=512):
 
 
 def profile_step(torch, step, label, flops):
-    """Host step time, device busy time, idle share and the top kernels of
-    one steady-state train step; returns the device us by kernel name."""
+    """Host step time, device busy time, idle share, the top kernels, the
+    host's kernel launches and the top host ops of one steady-state train
+    step; returns the device us by kernel name."""
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -205,7 +236,8 @@ def profile_step(torch, step, label, flops):
     print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s); matmul "
           f"work ~{flops / 1e9:.0f} GFLOP/step (2 forwards + 1 backward ~ 4 forwards) = "
           f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak")
-    by_kernel = device_us(torch, step, n=3)
+    host = {}
+    by_kernel = device_us(torch, step, n=3, host=host)
     if not by_kernel:
         print("  the profiler saw no device activity: device time not measured")
         return by_kernel
@@ -217,23 +249,37 @@ def profile_step(torch, step, label, flops):
           "top kernels (us/step):")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.1f}  {name[:90]}")
+    calls = {k: c for k, (c, _) in host.items()}
+    launches = sum(c for k, c in calls.items() if LAUNCH_API.match(k))
+    syncs = {k: c for k, c in calls.items() if SYNC_API.match(k)}
+    aten = sum(c for k, c in calls.items() if k.startswith("aten::"))
+    print(f"  host, per step under the profiler: {launches:.0f} kernel launches "
+          f"(cudaLaunchKernel and cuLaunchKernel calls), {aten:.0f} aten ops, "
+          f"{sum(c for k, c in calls.items() if k.startswith('autograd::engine')):.0f} "
+          f"autograd nodes, copies and syncs {syncs}; top host ops by self time "
+          "(us/step, calls/step):")
+    for name, (c, us) in sorted(host.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"    {us:9.1f} {c:6.0f}  {name[:80]}")
     return by_kernel
 
 
 def check_attention_kernels(torch, A, gen, dev):
-    """Attention kernels against their plain versions; returns the max
-    errors of the forward and the backward (f32, and bf16 under
-    "<name> bf16")."""
-    err = {"attn_fwd": 0.0, "attn_bwd": 0.0, "attn_fwd bf16": 0.0, "attn_bwd bf16": 0.0}
+    """Attention kernels against their plain versions, at the main paths'
+    shapes (8, 12, 80, 64) and (8, 12, 512, 64) in f32 and bf16 and at
+    smaller ones; returns the max errors, both dropout rates together, as
+    ``{(kernel, dtype, (B, H, S, D)): max |kernel - plain|}``."""
+    err = {}
     for S in (80, 512):  # the kernels' mask is keep_mask_plain's, bit for bit
         seed = torch.tensor([2 ** 40 + S], dtype=torch.int64, device=dev)
         card = A.attn_dropout_mask(seed, 2, 3, S, ATTN_DROP).bool()
         check(torch.equal(card, A.keep_mask_plain(2 ** 40 + S, 2, 3, S, ATTN_DROP, dev)),
               f"attn_dropout_mask differs from keep_mask_plain at S = {S}")
     print("  attn_dropout_mask equals keep_mask_plain at S = 80 and 512")
-    cases = [(2, 3, 80, 64, torch.float32), (8, 12, 128, 64, torch.float32),
-             (8, 12, 512, 64, torch.float32), (1, 2, 512, 128, torch.float32),
-             (2, 3, 80, 64, torch.bfloat16), (8, 12, 512, 64, torch.bfloat16)]
+    cases = [(2, 3, 80, 64, torch.float32), (8, 12, 80, 64, torch.float32),
+             (8, 12, 128, 64, torch.float32), (8, 12, 512, 64, torch.float32),
+             (1, 2, 512, 128, torch.float32),
+             (2, 3, 80, 64, torch.bfloat16), (8, 12, 80, 64, torch.bfloat16),
+             (8, 12, 512, 64, torch.bfloat16)]
     for B, H, S, D, dtype in cases:
         f32 = dtype == torch.float32
         fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
@@ -261,9 +307,9 @@ def check_attention_kernels(torch, A, gen, dev):
                 torch.testing.assert_close(g.float(), pg.float(), **bwd_tol,
                                            msg=lambda m: f"d{name}: {m}")
                 e_bwd = max(e_bwd, float((g.float() - pg.float()).abs().max()))
-            tag = "" if f32 else " bf16"
-            err["attn_fwd" + tag] = max(err["attn_fwd" + tag], e_fwd)
-            err["attn_bwd" + tag] = max(err["attn_bwd" + tag], e_bwd)
+            for name, e in (("attn_fwd", e_fwd), ("attn_bwd", e_bwd)):
+                key = (name, str(dtype)[6:], (B, H, S, D))
+                err[key] = max(err.get(key, 0.0), e)
             check(torch.equal(out, A.attn_fwd(q, k, v, bias, seed, rate)[0]),
                   "the same seed gives another output")
             if rate:
@@ -284,9 +330,11 @@ def check_attention_kernels(torch, A, gen, dev):
     frac = float(A.attn_dropout_mask(seed, 8, 12, 512, ATTN_DROP).float().mean())
     print(f"  keep fraction over 8*12*512*512 = {8 * 12 * 512 * 512} draws: {frac:.6f}")
     check(abs(frac - (1 - ATTN_DROP)) <= 1e-3, f"keep fraction {frac} off {1 - ATTN_DROP}")
-    print("  max errors: f32 fwd {attn_fwd:.3g}, grads {attn_bwd:.3g}; bf16 fwd "
-          "{attn_fwd bf16:.3g}, grads {attn_bwd bf16:.3g} (CUDA-core design: f32 2.98e-7 / "
-          "4.77e-7, bf16 1.95e-3 / 7.81e-3)".format_map(err))
+    worst = {(name, dt): max(e for (n, d, _), e in err.items() if (n, d) == (name, dt))
+             for name, dt, _ in err}
+    print("  max errors over the shapes: " + ", ".join(
+        f"{name} {dt} {e:.3g}" for (name, dt), e in sorted(worst.items()))
+        + " (CUDA-core design: f32 2.98e-7 / 4.77e-7, bf16 1.95e-3 / 7.81e-3)")
     return err
 
 
@@ -313,6 +361,70 @@ def check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
 
 
+def check_stochastic_rounding(torch, O, dev):
+    """The bf16 Adam moment's stochastic rounding on the card: values bf16
+    holds come back exactly; the mean of many roundings of one value is that
+    value; the card's int32 bit arithmetic equals the CPU's for the same
+    draws (negative, largest finite); a (seed, step) gives the same bits,
+    another seed or step other bits."""
+    fmax = float(np.finfo(np.float32).max)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    held = torch.cat([torch.randn(1 << 16, generator=gen, device=dev) * 1e3,
+                      torch.tensor([0.0, -0.0, 1.0, -2.5, 3.0e38, -3.0e38], device=dev)])
+    held = held.to(torch.bfloat16).float()
+    out = O.stochastic_round_to_bf16(held, gen)
+    check(torch.equal(out.view(torch.int16), held.to(torch.bfloat16).view(torch.int16)),
+          "stochastic rounding changed values that bf16 holds")
+    x0 = 1.0 + 0.3 * 2.0 ** -7  # 30 % of the way from 1 to the next bf16 value
+    n = 1 << 22
+    r = O.stochastic_round_to_bf16(torch.full((n,), x0, device=dev), gen).float()
+    up = float((r > 1.0).float().mean())
+    mean_err = abs(float(r.double().mean()) - x0)
+    check(set(torch.unique(r).tolist()) <= {1.0, 1.0 + 2.0 ** -7}, "rounded off the neighbours")
+    # 5 sigma of the binomial share over n draws: 5 sqrt(0.21 / n) = 1.1e-3
+    check(abs(up - 0.3) <= 1.2e-3, f"rounded up {up:.5f} of the time, not 0.3")
+    check(mean_err <= 1.2e-3 * 2.0 ** -7, f"mean off by {mean_err:.3g}")
+    x = torch.cat([torch.randn(1 << 16, generator=gen, device=dev),
+                   torch.tensor([fmax, -fmax, -1.5, 2.0 ** -126], device=dev)])
+    rnd = torch.randint(0, 1 << 16, x.shape, generator=gen, device=dev, dtype=torch.int32)
+    on_card = O.stochastic_round_bits(x, rnd).view(torch.int16).cpu()
+    check(torch.equal(on_card, O.stochastic_round_bits(x.cpu(), rnd.cpu()).view(torch.int16)),
+          "the card's rounding bits differ from the CPU's")
+    # JAX's unsigned form, in int64: ((bits mod 2^32 + r) >> 16) mod 2^16
+    bits = x.cpu().view(torch.int32).long() & 0xFFFFFFFF
+    want = ((bits + rnd.cpu().long()) >> 16) & 0xFFFF
+    check(torch.equal(on_card.long() & 0xFFFF, want), "the rounding bits differ from uint32's")
+    adam = O.Adam(1e-3, nu_dtype=torch.bfloat16, sr_seed=7)
+    y = torch.rand(1 << 16, generator=gen, device=dev)
+
+    def draw(opt, count):
+        return O.stochastic_round_to_bf16(y, opt._sr_generator(count, dev)).view(torch.int16)
+
+    same = torch.equal(draw(adam, 5), draw(adam, 5))
+    other_step = not torch.equal(draw(adam, 5), draw(adam, 6))
+    other_seed = not torch.equal(draw(adam, 5),
+                                 draw(O.Adam(1e-3, nu_dtype=torch.bfloat16, sr_seed=8), 5))
+    check(same and other_step and other_seed, "the rounding stream is not a function of "
+          f"(seed, step): same {same}, other step {other_step}, other seed {other_seed}")
+    print(f"  held values exact ({held.numel()}); {n} draws of {x0}: up {up:.5f} (0.3), "
+          f"|mean - x| {mean_err:.3g}; bits equal the CPU's and uint32's; per (seed, step)")
+
+
+# cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
+# *_simt_sgemm_*, *_f32f32_*_ffma_*, gemv and gemmSN its CUDA-core ones
+GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
+TENSOR_CORE = re.compile(r"nvjet|bf16|s16816|h16816|hmma|gmma|tf32", re.I)
+
+
+def gemm_split(by_kernel):
+    """The device us of a step's GEMMs on the tensor cores (nvjet, bf16,
+    hmma, gmma and the like in the name) and on the CUDA cores (the other
+    GEMMs)."""
+    tc = sum(v for k, v in by_kernel.items() if GEMM.search(k) and TENSOR_CORE.search(k))
+    simt = sum(v for k, v in by_kernel.items() if GEMM.search(k) and not TENSOR_CORE.search(k))
+    return tc, simt
+
+
 def main():
     import torch
 
@@ -322,18 +434,20 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.data.compact_vocab import build_compact_vocab, remap_pairing
     from eeg_multimodal_torch.models import bert as bert_mod
     from eeg_multimodal_torch.models import fusion
     from eeg_multimodal_torch.ops import _build
     from eeg_multimodal_torch.ops import attention as A
     from eeg_multimodal_torch.ops import dp as dp_ops
     from eeg_multimodal_torch.ops import dp_fused as K
+    from eeg_multimodal_torch.ops import optim as O
     from eeg_multimodal_torch.train.api import TrainAndTest
     from eeg_multimodal_torch.train.checkpoint import load_torch_checkpoint, save_torch_checkpoint
     from eeg_multimodal_torch.train.records import parse_legacy_records
-    from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+    from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig, Trainer
     from eeg_multimodal_torch.utils.device import resolve_device
-    from eeg_multimodal_torch.utils.trees import tree_items, tree_map, tree_size
+    from eeg_multimodal_torch.utils.trees import tree_cast, tree_items, tree_map, tree_size
 
     dev = resolve_device()
     kind = torch.cuda.get_device_name(0)
@@ -350,7 +464,9 @@ def main():
     phase("build the CUDA library (nvcc, sm_90a)")
     t0 = time.time()
     _, build_log, nvcc_s = _build.library()
-    print(f"  nvcc {nvcc_s:.1f} s, build + load {time.time() - t0:.1f} s")
+    per_process = re.findall(r"^nvcc (\S+): ([\d.]+) s$", build_log, re.M)
+    print(f"  nvcc {nvcc_s:.1f} s, build + load {time.time() - t0:.1f} s; each process's "
+          f"wall s (compiles together, then the link): {dict(per_process)}")
     entry = ""
     for line in build_log.splitlines():  # ptxas -v: registers, shared memory, spills
         if "Compiling entry function" in line:
@@ -431,6 +547,9 @@ def main():
     phase("reference check: 2-layer BERT at S = 512, card (attention kernels) against CPU")
     check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev)
 
+    phase("stochastic rounding of the bf16 Adam moment on the card")
+    check_stochastic_rounding(torch, O, dev)
+
     phase("main path 1: TICA_LapDropout fused-DP trainer, full width, S = 80")
     rng = np.random.RandomState(0)
     train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
@@ -445,7 +564,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in all_kernels:
-        k.launches = 0
+        k.reset()
     rows = []
     for epoch in range(2):
         rows.append(trainer.run_epoch(epoch, train_dev, test_dev, N_TRAIN, N_EVAL, EPS))
@@ -453,7 +572,6 @@ def main():
             dp_changed = not torch.equal(trainer.params["DP"], dp0)
     launches_80 = {k.name: k.launches for k in all_kernels}
     steps = N_TRAIN // tc.batch_size
-    eval_batches = N_EVAL // tc.batch_size
     print_rows(rows, steps)
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches_80}")
@@ -463,11 +581,14 @@ def main():
         check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1]")
     check(dp_changed, "DP did not change in the first epoch")
     # the H100 attention gate takes S = 80: every BERT layer of both phases'
-    # forwards and of the eval forwards, and of the phase-2 backward
+    # forwards and of the eval's one batched forward an epoch, and of the
+    # phase-2 backward
     layers = fusion.config_for("ti", "lapacian_dropout").bert_cfg().num_layers
-    want = {"dp_fwd": 2 * (2 * steps + eval_batches), "dp_bwd": 2 * 2 * steps,
-            "attn_fwd": layers * (2 * steps + eval_batches) * 2, "attn_bwd": layers * steps * 2}
+    want = {"dp_fwd": 2 * (2 * steps + 1), "dp_bwd": 2 * 2 * steps,
+            "attn_fwd": layers * (2 * steps + 1) * 2, "attn_bwd": layers * steps * 2}
     check(launches_80 == want, f"launches {launches_80}, expected {want}")
+    check(all(set(k.by_dtype) == {"float32"} for k in all_kernels if k.launches),
+          "an f32 path launched another instantiation")
 
     phase("reference check: card against CPU on 2 rows, composed and fused DP block")
     batch = D.gather_batch(test_dev, torch.arange(2, device=dev))
@@ -493,13 +614,18 @@ def main():
             print(f"  {name} DP block: logits max|card - cpu| {ref_err:.3g}")
             torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-4)
 
-    def step_fn(tr, data):
+    def step_fn(tr, data, steps=None):
+        """One train step of ``tr`` on the first batch of ``data``, through
+        ``steps`` (by default the trainer's own StepFunctions)."""
+        steps = steps or tr.steps
         batch = D.gather_batch(data, torch.arange(tc.batch_size, device=dev))
         w = torch.ones(tc.batch_size, device=dev)
         states = [tr.dp_os, tr.model_os]
+        params_c = steps.precast_copy(tr.params) if steps.precast else None
 
         def train_step():
-            states[:] = tr.steps.train_step(tr.params, *states, batch, w, EPS, gen)[:2]
+            states[:] = steps.train_step(tr.params, *states, batch, w, EPS, gen,
+                                         params_c=params_c)[:2]
         return train_step
 
     phase("profile: steady-state train step at S = 80, attention gate open and closed")
@@ -519,26 +645,202 @@ def main():
             attn = sum(v for k, v in by_kernel.items() if "attn_" in k)
             print(f"  DP kernels in the step (us/step): {dp_us}; attention kernels "
                   f"{attn:.1f} us/step")
-    del trainer, train_dev, test_dev, step_80
+    del step_80
+    run_epoch = Trainer.run_epoch
+
+    def snapshotting(snaps):
+        """Trainer.run_epoch, keeping host copies of the params after each
+        epoch in ``snaps`` (for the checkpoint checks)."""
+        def snapshot_epoch(self, *args, **kwargs):
+            row = run_epoch(self, *args, **kwargs)
+            snaps[row["epoch"]] = tree_map(lambda t: t.detach().cpu().clone(), self.params)
+            return row
+        return snapshot_epoch
+
+    def check_history(history, where):
+        check(len(history) == 2, f"{where}: fit ran another number of epochs")
+        for row in history:
+            check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
+                  f"{where}: non-finite loss")
+            check(0.0 <= row["f1"] <= 1.0, f"{where}: F1 outside [0, 1]")
+
+    def check_records(logs, where):
+        recs = parse_legacy_records(open(os.path.join(logs, "whole_record.txt")).read())
+        check([r["epoch"] for r in recs] == [1, 2], f"{where}: whole_record.txt epochs {recs}")
+        check(len(open(os.path.join(logs, "metrics.jsonl")).read().splitlines()) == 2,
+              f"{where}: metrics.jsonl does not hold two epochs")
+
+    # bf16: the attention kernels' bf16 instantiations, in every BERT layer of
+    # both phases' forwards, of the eval's one batched forward an epoch, and
+    # of the phase-2 backward; composed DP, so no DP kernel
+    want_bf16 = {"dp_fwd": {}, "dp_bwd": {},
+                 "attn_fwd": {"bfloat16": layers * (2 * steps + 1) * 2},
+                 "attn_bwd": {"bfloat16": layers * steps * 2}}
+
+    phase("main path 3: TrainAndTest(epochs=2) at its default bf16 compute, "
+          "train_on(compact_vocab=True), S = 80")
+    train3, test3 = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
+    root3 = tempfile.mkdtemp(prefix="chip_smoke_")
+    api3 = TrainAndTest(epochs=2, artifacts_root=root3, echo=False)
+    check(api3.compute_dtype == "bfloat16", f"TrainAndTest defaults to {api3.compute_dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in all_kernels:
+        k.reset()
+    result3 = api3.train_on(train3, test3, "DPMLD", "bf16/", "ti", "lapacian_dropout",
+                            compact_vocab=True)
+    launches_bf16 = {k.name: dict(k.by_dtype) for k in all_kernels}
+    tr3 = api3.trainer
+    words = tr3.params["bert"]["embeddings"]["word"].shape[0]
+    print_rows(result3["history"], steps)
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches by "
+          f"dtype {launches_bf16}; compact vocab {words} of 30522 rows; f1_best "
+          f"{result3['f1_best']:.4f}")
+    check_history(result3["history"], "path 3")
+    check(tr3.steps.compute_dtype == torch.bfloat16, "path 3 did not compute in bf16")
+    check(tr3.vocab is not None and words == tr3.vocab.size < 30522, "no compact vocab")
+    check(float(tr3.params["DP"].abs().max()) > 0, "DP did not train on path 3")
+    check(launches_bf16 == want_bf16, f"launches {launches_bf16}, expected {want_bf16}")
+    check_records(os.path.join(root3, "logs", "DPMLD", "bf16"), "path 3")
+
+    phase("reference check: bf16 forward, card against CPU on 2 rows (composed DP, the "
+          "noise handed across)")
+    test3_dev = remap_pairing(D.truncate_pair(train3, test3)[1], tr3.vocab).to_device(dev)
+    batch = D.gather_batch(test3_dev, torch.arange(2, device=dev))
+    noise = torch.randn(2, fc.concat_width, generator=gen, device=dev)
+    fc3 = tr3.fusion_cfg
+    before = A.attn_fwd.by_dtype.get("bfloat16", 0)
+    with torch.no_grad():
+        p16 = tree_cast(tr3.params, torch.bfloat16)
+        on_card = fusion.apply(p16, batch, fc3, EPS, True, None, False, dp_noise=noise)
+        f32_card = fusion.apply(tr3.params, batch, fc3, EPS, True, None, False, dp_noise=noise)
+        on_cpu = fusion.apply(tree_map(torch.Tensor.cpu, p16), tree_map(torch.Tensor.cpu, batch),
+                              fc3, EPS, True, None, False, dp_noise=noise.cpu())
+    check(A.attn_fwd.by_dtype.get("bfloat16", 0) - before == layers,
+          "the card's bf16 forward did not go through the bf16 attention kernel")
+    check(on_card.dtype == torch.float32 and tuple(on_card.shape) == (2, 2)
+          and bool(torch.isfinite(on_card).all()), "bf16 logits not finite f32 (2, 2)")
+    print(f"  logits max|card - cpu| {float((on_card.cpu() - on_cpu).abs().max()):.3g} (bf16, "
+          f"tolerance {BF16_LOGIT_TOL}); for scale, max|bf16 - f32| on the card "
+          f"{float((on_card - f32_card).abs().max()):.3g}, max|logit| "
+          f"{float(f32_card.abs().max()):.3g}")
+    torch.testing.assert_close(on_card.cpu(), on_cpu, **BF16_LOGIT_TOL)
+    del p16, test3_dev
+
+    phase("bench.py's configuration through Trainer.fit: bf16 compute and Adam moments, "
+          "precast_params, compact vocab, composed DP, S = 80")
+    train_b, test_b = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    vocab = build_compact_vocab([train_b.eeg_input, test_b.eeg_input])
+    train_b, test_b = remap_pairing(train_b, vocab), remap_pairing(test_b, vocab)
+    fc_full = fusion.config_for("ti", "lapacian_dropout")
+    fc_b = dataclasses.replace(fc_full, bert_config=bert_mod.BertConfig(vocab_size=vocab.size))
+    tc_b = TrainConfig(compute_dtype="bfloat16", adam_mu_dtype="bfloat16",
+                       adam_nu_dtype="bfloat16", precast_params=True, epochs=2,
+                       f1_best_init=0.0)
+    bench = Trainer(fc_b, tc_b, vocab=vocab)
+    ckpt_b = os.path.join(root3, "bench", "best_f1.pickle")
+    snaps = {}
+    for k in all_kernels:
+        k.reset()
+    Trainer.run_epoch = snapshotting(snaps)
+    try:
+        res_b = bench.fit(train_b, test_b, EPS, log_path=os.path.join(root3, "bench"),
+                          model_path=ckpt_b, echo=False)
+    finally:
+        Trainer.run_epoch = run_epoch
+    launches_b = {k.name: dict(k.by_dtype) for k in all_kernels}
+    print_rows(res_b["history"], steps)
+    print(f"  launches by dtype {launches_b}; f1_best {res_b['f1_best']:.4f} (best epoch "
+          f"{res_b['best'] and res_b['best']['epoch']})")
+    check_history(res_b["history"], "bench configuration")
+    check(launches_b == want_bf16, f"launches {launches_b}, expected {want_bf16}")
+    check_records(os.path.join(root3, "bench"), "bench configuration")
+    check(res_b["best"] is not None and os.path.exists(ckpt_b),
+          "F1 never passed 0.0: no best checkpoint to check")
+    loaded = load_torch_checkpoint(ckpt_b, fc_full, device="cpu")
+    best = dict(tree_items(snaps[res_b["best"]["epoch"]]))
+    word = loaded["bert"]["embeddings"]["word"]
+    used = torch.from_numpy(vocab.new_to_old).long()
+    unused = torch.ones(word.shape[0], dtype=torch.bool)
+    unused[used] = False
+    check(tuple(word.shape) == (30522, 768), f"checkpoint word table {tuple(word.shape)}")
+    check(torch.equal(word[used], best["bert/embeddings/word"])
+          and float(word[unused].abs().max()) == 0.0,
+          "the checkpoint's word rows are not the compact table scattered to full vocab")
+    check(all(torch.equal(leaf, best[path]) for path, leaf in tree_items(loaded)
+              if path != "bert/embeddings/word"), "the checkpoint differs from the best params")
+    moments = bench.model_os
+    check(all(t.dtype == torch.bfloat16 for t in moments.mu + moments.nu)
+          and bool(torch.isfinite(moments.packed["nu"]).all())
+          and float(moments.packed["nu"].float().max()) > 0,
+          "the stored Adam moments are not bf16, finite and trained")
+    print(f"  checkpoint of epoch {res_b['best']['epoch']} loads with {word.shape[0]} word "
+          f"rows ({vocab.size} trained, the rest 0) and equals the best params; Adam moments "
+          f"bf16, {moments.packed['nu'].numel()} each, nu finite")
+    del loaded, best, word, snaps
+    shutil.rmtree(root3)
+
+    phase("profile: steady-state S = 80 train step, the bench configuration (bf16) with "
+          "precast_params and with the in-step cast, in turns with path 1's f32 step")
+    train_b_dev, test_b_dev = train_b.to_device(dev), test_b.to_device(dev)
+    in_step = StepFunctions(fc_b, dataclasses.replace(tc_b, precast_params=False), dev)
+    steps_by_label = {"f32, path 1": step_fn(trainer, train_dev),
+                      "bf16, bench, precast": step_fn(bench, train_b_dev),
+                      "bf16, bench, in-step cast": step_fn(bench, train_b_dev, in_step)}
+    for label in ("f32, path 1", "bf16, bench, precast", "bf16, bench, in-step cast",
+                  "bf16, bench, in-step cast", "bf16, bench, precast", "f32, path 1"):
+        by_kernel = profile_step(torch, steps_by_label[label], f"S = 80, {label}",
+                                 4 * forward_matmul_flops(tc.batch_size, 80))
+        if by_kernel:
+            tc_us, simt_us = gemm_split(by_kernel)
+            attn = sum(v for k, v in by_kernel.items() if "attn_" in k)
+            print(f"  GEMMs on the tensor cores {tc_us / 1e3:.2f} ms/step, on the CUDA cores "
+                  f"{simt_us / 1e3:.2f} ms/step; attention kernels {attn:.1f} us/step; "
+                  "top GEMMs (us/step):")
+            gemms = sorted(((v, k) for k, v in by_kernel.items() if GEMM.search(k)), reverse=True)
+            for us, name in gemms[:5]:
+                print(f"    {us:9.1f}  {'TC  ' if TENSOR_CORE.search(name) else 'SIMT'} "
+                      f"{name[:84]}")
+    del steps_by_label, in_step
+
+    phase("eval epoch: one batched forward (eval_vmap_batches) against the batch loop, bench "
+          "configuration, 601 rows in 76 batches, in turns")
+    n_rows = 601  # the reference's eval set (bench.py:27)
+    flat = torch.arange(-(-n_rows // tc.batch_size) * tc.batch_size, device=dev)
+    eidx = (flat % N_EVAL).reshape(-1, tc.batch_size)  # the 32 eval rows, cycled
+    ew = (flat < n_rows).float().reshape(-1, tc.batch_size)
+    evals = {"batched": bench.steps,
+             "loop": StepFunctions(fc_b, dataclasses.replace(tc_b, eval_vmap_batches=False), dev)}
+    eval_ms = {label: [] for label in evals}
+    for label in ("batched", "loop", "loop", "batched"):
+        def eval_epoch(steps=evals[label]):
+            return steps.eval_epoch(bench.params, test_b_dev, eidx, ew, EPS, gen)[0]
+        eval_epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eval_epoch()
+        torch.cuda.synchronize()
+        eval_ms[label].append((time.perf_counter() - t0) / 3 * 1e3)
+        if len(eval_ms[label]) == 1:
+            busy = sum(device_us(torch, eval_epoch, 1).values()) / 1e3
+            print(f"  {label}: device busy {busy:.2f} ms per eval epoch")
+    print("  eval epoch, host ms in turns (batched, loop, loop, batched): "
+          f"{eval_ms['batched'][0]:.2f}, {eval_ms['loop'][0]:.2f}, {eval_ms['loop'][1]:.2f}, "
+          f"{eval_ms['batched'][1]:.2f}")
+    del trainer, train_dev, test_dev, bench, api3, tr3, evals, train_b_dev, test_b_dev
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
     check(train.eeg_input.shape == (N_TRAIN, 512), "the 512-token rows were cut")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     snaps = {}  # host copies of the params after each epoch, for the checkpoint check
-    run_epoch = Trainer.run_epoch
-
-    def snapshot_epoch(self, *args, **kwargs):
-        row = run_epoch(self, *args, **kwargs)
-        snaps[row["epoch"]] = tree_map(lambda t: t.detach().cpu().clone(), self.params)
-        return row
-
     api = TrainAndTest(compute_dtype="float32", epochs=2, artifacts_root=root, echo=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in all_kernels:
-        k.launches = 0
-    Trainer.run_epoch = snapshot_epoch
+        k.reset()
+    Trainer.run_epoch = snapshotting(snaps)
     try:
         result = api.train_on(train, test, "DPMLD", "smoke/", "ti", "lapacian_dropout",
                               auto_truncate=False)
@@ -549,22 +851,15 @@ def main():
     print_rows(history, steps)
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {launches}; f1_best {result['f1_best']:.4f}")
-    check(len(history) == 2, "fit ran another number of epochs")
-    for row in history:
-        check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
-              "non-finite loss at S = 512")
-        check(0.0 <= row["f1"] <= 1.0, "F1 outside [0, 1] at S = 512")
-    want = {"attn_fwd": layers * (2 * steps + eval_batches) * 2,
+    check_history(history, "S = 512")
+    want = {"attn_fwd": layers * (2 * steps + 1) * 2,
             "attn_bwd": layers * steps * 2, "dp_fwd": 0, "dp_bwd": 0}
     check(launches == want, f"launches {launches}, expected {want}")
     final = api.trainer.params
     check(not torch.equal(final["DP"].cpu(), snaps[1]["DP"])
           and float(final["DP"].abs().max()) > 0, "DP did not train at S = 512")
     logs = os.path.join(root, "logs", "DPMLD", "smoke")
-    recs = parse_legacy_records(open(os.path.join(logs, "whole_record.txt")).read())
-    check([r["epoch"] for r in recs] == [1, 2], f"whole_record.txt epochs {recs}")
-    check(len(open(os.path.join(logs, "metrics.jsonl")).read().splitlines()) == 2,
-          "metrics.jsonl does not hold two epochs")
+    check_records(logs, "S = 512")
     ckpt_path = os.path.join(root, "models", "custom", "DPMLD", "smoke", "best_f1.pickle")
     if result["f1_best"] > tc.f1_best_init:
         check(os.path.exists(ckpt_path) and os.path.exists(os.path.join(logs, "best_record.txt")),
@@ -709,26 +1004,64 @@ def main():
                 kernels.append({
                     "name": name, "route": ROUTES[name], "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": launches[name],
-                    "max_abs_err": err[name], "ms": t[key], "plain_ms": t[key + " plain"],
+                    "max_abs_err": err[(name, "float32", (B, H, S, D))], "ms": t[key],
+                    "plain_ms": t[key + " plain"],
                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                     "library_ms": t[key + " sdpa"],
                 })
 
-    phase("timing: attention kernels, bf16, (8, 12, 512, 64), p = 0.1")
-    B, H, S, D = 8, 12, 512, 64
-    q, k, v, dout = (torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
-                     for _ in range(4))
-    bias = torch.zeros(B, S, device=dev)
-    s = seed(13)
-    out, stats = A.attn_fwd(q, k, v, bias, s, ATTN_DROP)
-    bf = {"fwd": time_ms(torch, lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP), 20, 5),
-          "bwd": time_ms(torch, lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats,
-                                                   dout), 20, 5),
-          "fwd sdpa": time_ms(torch, lambda: TF.scaled_dot_product_attention(
-              q, k, v, attn_mask=bias[:, None, None, :], dropout_p=ATTN_DROP), 20, 5)}
-    bnd = {n: attn_bound_ms(n, B, H, S, D, 2)[0] for n in ("attn_fwd", "attn_bwd")}
-    print("  " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in bf.items())
-          + f"; bound fwd {bnd['attn_fwd'] * 1e3:.2f} us, bwd {bnd['attn_bwd'] * 1e3:.2f} us")
+    phase("timing: attention kernels, bf16, p = 0.1 (path 3's S = 80, and S = 512)")
+    for S in (80, 512):
+        B, H, D = 8, 12, 64
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        bias[:, VALID_TOKENS:] = NEG
+        bias4 = bias[:, None, None, :]
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        s = seed(13)
+        out, stats = A.attn_fwd(q, k, v, bias, s, ATTN_DROP)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def keep():
+            return torch.rand(B, H, S, S, generator=gen, device=dev) < 1 - ATTN_DROP
+
+        def fwd():
+            return A.attn_fwd(q, k, v, bias, s, ATTN_DROP)
+
+        def bwd():
+            return A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats, dout)
+
+        n = 20 if S == 512 else 50
+        t = {"fwd": time_ms(torch, fwd, n, 5), "bwd": time_ms(torch, bwd, n, 5),
+             "fwd plain": time_ms(torch, lambda: A.attention_plain(q, k, v, bias, keep(),
+                                                                   ATTN_DROP), n, 5),
+             "bwd plain": time_ms(torch, lambda: A.attention_bwd_plain(
+                 q, k, v, bias, keep(), ATTN_DROP, dout), n, 5),
+             "fwd sdpa": time_ms(torch, lambda: TF.scaled_dot_product_attention(
+                 q, k, v, attn_mask=bias4, dropout_p=ATTN_DROP), n, 5),
+             "fwd+bwd sdpa": time_ms(torch, lambda: torch.autograd.grad(
+                 TF.scaled_dot_product_attention(*leaves, attn_mask=bias4, dropout_p=ATTN_DROP),
+                 leaves, dout), n, 5)}
+        t["bwd sdpa"] = t["fwd+bwd sdpa"] - t["fwd sdpa"]
+        dev_t = {"fwd": sum(device_us(torch, fwd, 10).values()),
+                 "bwd": sum(device_us(torch, bwd, 10).values())}
+        bounds = {name: attn_bound_ms(name, B, H, S, D, 2) for name in ("attn_fwd", "attn_bwd")}
+        print(f"  S = {S}: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in t.items()))
+        print(f"  S = {S}: device time fwd {dev_t['fwd']:.1f} us, bwd {dev_t['bwd']:.1f} us; "
+              f"bound (bf16 tensor cores) fwd {bounds['attn_fwd'][0] * 1e3:.2f} us "
+              f"({bounds['attn_fwd'][1]}), bwd {bounds['attn_bwd'][0] * 1e3:.2f} us "
+              f"({bounds['attn_bwd'][1]})")
+        if S == 80:  # path 3's shape
+            for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
+                kernels.append({
+                    "name": name + "_bf16", "route": ROUTES[name], "source": SOURCES[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches_bf16[name].get("bfloat16", 0),
+                    "max_abs_err": err[(name, "bfloat16", (B, H, S, D))], "ms": t[key],
+                    "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
+                    "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
+                })
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

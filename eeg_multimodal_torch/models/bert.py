@@ -5,6 +5,12 @@ token-type embeddings with LayerNorm eps 1e-12, post-LN layers with an erf
 GELU FFN, the HF additive attention mask ``(1 - m) * finfo(f32).min``, and
 the tanh pooler. ``apply`` returns ``(sequence_output, pooled_output)`` as
 ``BertModel(..., return_dict=False)`` does (ref: models.py:59-61).
+
+The activations take the dtype of the parameters: under the trainer's bf16
+compute cast the embeddings, the packed QKV (f32 accumulation, one rounding)
+and every layer's output are bf16, each LayerNorm runs in f32, and the
+(B, H, S, D) bf16 q/k/v go to the attention kernels with an f32 bias, as
+``bert.py:101-173`` of the JAX package has it.
 """
 from __future__ import annotations
 
@@ -85,7 +91,9 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
     path alike) the fused CUDA kernels run, with a dropout seed drawn per
     layer from ``gen`` as a one-element device tensor (no host sync);
     elsewhere (a head width the kernels are not built for) the plain
-    branch. The JAX package's gate sends S = 80 to its einsum branch.
+    branch. The JAX package's gate sends S = 80 to its einsum branch, which
+    multiplies f32 probabilities by V; the kernels, like the JAX kernel, round
+    P to the input dtype first (one bf16 rounding under the compute cast).
     """
     S, D = q.shape[-2:]
     if fused.attention_available(S, D):
@@ -99,7 +107,9 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
 
 
 def attention_unfused(q, k, v, attn_bias, attn_drop, gen):
-    """The plain branch: (B, H, S, S) scores and probs in device memory."""
+    """The plain branch: (B, H, S, S) f32 scores and probs in device memory;
+    returns f32, which the caller casts to the activations' dtype."""
+    q, k, v = q.float(), k.float(), v.float()
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     probs = torch.softmax(scores + attn_bias, dim=-1)  # additive mask, HF-style
     return torch.matmul(dropout(probs, attn_drop, gen), v)
@@ -110,16 +120,16 @@ def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen):
     D = H // num_heads
     # packed QKV: one (H, 3H) matmul instead of three (bert.py:124-148 there);
     # the tree keeps the separate torch-shaped q/k/v entries
-    w = torch.cat([p["query"]["kernel"], p["key"]["kernel"], p["value"]["kernel"]], dim=1)
-    b = torch.cat([p["query"]["bias"], p["key"]["bias"], p["value"]["bias"]])
-    qkv = F.linear(x, w.t(), b)
+    packed = {name: torch.cat([p[m][name] for m in ("query", "key", "value")], dim=-1)
+              for name in ("kernel", "bias")}
+    qkv = linear(packed, x)
     # strided (B, H, S, D) views of qkv: the kernels take them without copies
     q, k, v = (
         qkv[..., i * H:(i + 1) * H].reshape(B, S, num_heads, D).transpose(1, 2)
         for i in range(3)
     )
     ctx = _attention(q, k, v, attn_bias, attn_drop, gen)
-    return linear(p["output"], ctx.transpose(1, 2).reshape(B, S, H))
+    return linear(p["output"], ctx.transpose(1, 2).reshape(B, S, H).to(x.dtype))
 
 
 def apply(

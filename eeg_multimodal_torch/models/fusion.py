@@ -10,6 +10,14 @@ The parameter tree has the JAX package's names and layouts.
 ``FusionConfig`` and ``config_for`` cover every reference class, as in the
 JAX package; ``init`` and ``apply`` run the ``ti`` / double-stream /
 ``lapacian_dropout`` configuration and refuse the others.
+
+Under the trainer's bf16 compute cast (a bf16 copy of the whole tree, ``DP``
+included) the dtypes follow the JAX package's promotions: BERT runs in bf16;
+the act stream is cast to ``config.dtype`` (f32), so the visual encoder and
+the whole decoder run in f32 with bf16-rounded weights, over BERT's bf16
+sequence as memory; the concat and the head are f32; on the composed path
+``w = sigmoid(DP)`` is bf16 and eps_hat f32, and the fused path casts the
+bf16 ``DP`` back to f32 (fusion.py:204, :281-284, :313 there).
 """
 from __future__ import annotations
 
@@ -155,7 +163,8 @@ def encode_features(params, batch, config: FusionConfig,
         params["bert"], batch["eeg_input"], batch["eeg_mask"], config.bert_cfg(),
         gen=drop,
     )
-    seq_b = L.linear(params["visual_encoder"], batch["act_input"])  # (B, 1, 768)
+    act = batch["act_input"].to(getattr(torch, config.dtype))
+    seq_b = L.linear(params["visual_encoder"], act)  # (B, 1, 768)
     feat_b = seq_b[:, 0, :]
     # decoder(tgt = act stream, memory = eeg stream), torch masks mask == 0
     cross = L.decoder(
@@ -165,7 +174,7 @@ def encode_features(params, batch, config: FusionConfig,
         gen=drop,
     ).mean(dim=1)
     # the head after the concat stays f32 (fusion.py:281-284 there)
-    return torch.cat([feat_a, feat_b, cross], dim=1).to(torch.float32)
+    return torch.cat([t.to(torch.float32) for t in (feat_a, feat_b, cross)], dim=1)
 
 
 def apply_head(params, feature_raw, config: FusionConfig, epsilon: float,
@@ -185,7 +194,8 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon: float,
     dp = params["DP"]
     if config.fused_dp_kernel:
         seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=feature_raw.device)
-        feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise)
+        feature = dp_fused.fused_lap_dropout(feature_raw, dp.float(), epsilon, seed,
+                                             noise=dp_noise)
     else:
         if dp_noise is None:
             dp_noise = dp_fused.laplace_from_bits(

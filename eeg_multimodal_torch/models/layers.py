@@ -10,6 +10,14 @@ turns it off.
 The reference builds its cross-attention block from ``nn.TransformerDecoder``
 (python/src/custom_models/models.py:44-45): post-LN, ReLU FFN of width 2048,
 dropout 0.1, key-padding masks that send masked scores to -inf.
+
+Under a bf16 compute cast the functions keep the JAX package's dtype trail
+(layers.py:80-143 there): a linear accumulates in f32, adds its bias in f32
+and rounds once to its input's dtype; LayerNorm runs in f32; dropout keeps
+the dtype; attention computes q/k/v, scores, softmax and P.V in f32 and
+casts to the query's dtype. Where an f32 activation meets bf16 weights,
+JAX promotes the product to f32; ``F.linear`` refuses mixed dtypes, so the
+functions cast up explicitly.
 """
 from __future__ import annotations
 
@@ -69,12 +77,21 @@ def mha_init(gen, embed_dim: int, device):
 # ---------------------------------------------------------------------------
 
 def linear(params, x):
-    return F.linear(x, params["kernel"].t(), params["bias"])
+    """``x @ kernel + bias`` in the promoted dtype of x and the kernel,
+    rounded once to x's dtype. A bf16 GEMM accumulates in f32 and adds the
+    bias before that rounding (cuBLAS's bias epilogue, or beta = 1 on the
+    bias), as ``preferred_element_type=float32`` does there."""
+    dt = torch.promote_types(x.dtype, params["kernel"].dtype)
+    return F.linear(x.to(dt), params["kernel"].to(dt).t(), params["bias"].to(dt)).to(x.dtype)
 
 
 def layer_norm(params, x, eps: float = 1e-5):
-    # torch LayerNorm: biased variance over the last dim
-    return F.layer_norm(x, x.shape[-1:], params["scale"], params["bias"], eps)
+    """torch LayerNorm (biased variance over the last dim), computed in f32
+    and cast back to x's dtype."""
+    f32 = torch.float32
+    y = F.layer_norm(x.to(f32), x.shape[-1:], params["scale"].to(f32), params["bias"].to(f32),
+                     eps)
+    return y.to(x.dtype)
 
 
 def dropout(x, rate: float, gen: Optional[torch.Generator]):
@@ -96,15 +113,19 @@ def multi_head_attention(
     gen: Optional[torch.Generator] = None,
 ):
     """torch nn.MultiheadAttention forward (batch-first, need_weights=False);
-    masked keys get -inf scores (layers.py:136-138 of the JAX package)."""
+    masked keys get -inf scores (layers.py:136-138 of the JAX package).
+    Everything up to the output projection runs in f32, whatever the dtypes
+    of the inputs and weights; the output projection's input is cast to
+    the query's dtype."""
     B, Sq, E = query.shape
     Sk = key_value.shape[1]
     H = num_heads
     D = E // H
-    w, b = params["in_proj_kernel"], params["in_proj_bias"]
-    q = F.linear(query, w[:, :E].t(), b[:E])
-    k = F.linear(key_value, w[:, E:2 * E].t(), b[E:2 * E])
-    v = F.linear(key_value, w[:, 2 * E:].t(), b[2 * E:])
+    f32 = torch.float32
+    w, b = params["in_proj_kernel"].to(f32), params["in_proj_bias"].to(f32)
+    q = F.linear(query.to(f32), w[:, :E].t(), b[:E])
+    k = F.linear(key_value.to(f32), w[:, E:2 * E].t(), b[E:2 * E])
+    v = F.linear(key_value.to(f32), w[:, 2 * E:].t(), b[2 * E:])
     q = q.reshape(B, Sq, H, D).transpose(1, 2)  # (B, H, Sq, D)
     k = k.reshape(B, Sk, H, D).transpose(1, 2)
     v = v.reshape(B, Sk, H, D).transpose(1, 2)
@@ -113,7 +134,7 @@ def multi_head_attention(
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
     attn = dropout(torch.softmax(scores, dim=-1), dropout_rate, gen)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Sq, E)
+    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Sq, E).to(query.dtype)
     return linear(params["out_proj"], out)
 
 

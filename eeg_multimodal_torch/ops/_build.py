@@ -1,8 +1,9 @@
 """Build the port's CUDA C++ sources with nvcc and load them with ctypes.
 
 The ``.cu`` files under ``eeg_multimodal_torch/csrc/`` expose a plain C
-interface. At first use they are compiled, all in one nvcc call, into one
-shared library for Hopper (``sm_90a``), under
+interface. At first use they are compiled, one nvcc process per source, all
+started together, and linked into one shared library for Hopper
+(``sm_90a``), under
 ``.cache/kernels/<hash of the sources and flags>/`` at the checkout's root
 (git-ignored), and loaded with ``ctypes``. A later call with the same
 sources loads the cached library. A failed build raises with nvcc's stderr:
@@ -16,7 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -52,11 +55,31 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> str:
+    """Run the commands at once, one process each; returns their output,
+    each led by a line with its wall seconds, or raises with the first
+    failed one's stderr."""
+    def run(cmd):
+        t0 = time.time()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        return res, time.time() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        results = list(pool.map(run, cmds))
+    for cmd, (res, _) in zip(cmds, results):
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
+                               f"{res.stderr}")
+    return "".join(f"nvcc {os.path.basename(cmd[-1])}: {s:.1f} s\n{res.stdout}{res.stderr}"
+                   for cmd, (res, s) in zip(cmds, results))
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """The loaded library: ``(ctypes.CDLL, build log, seconds spent)``. The
-    log is ptxas's register and shared-memory report; the seconds are 0
-    when the cached library was loaded."""
+    log is each nvcc process's wall seconds and ptxas's register and
+    shared-memory report; the seconds are 0 when the cached library was
+    loaded."""
     cu, cuh = sources()
     out_dir = os.path.join(CACHE, _digest(cu + cuh))
     lib = os.path.join(out_dir, LIB_NAME)
@@ -64,17 +87,22 @@ def library():
     seconds = 0.0
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, "-I", CSRC, "-o", tmp, *cu]
-        t0 = time.time()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.time() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-                               f"{res.stderr}")
-        with open(log_path, "w") as f:
-            f.write(res.stdout + res.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        work = tempfile.mkdtemp(dir=out_dir)  # the objects; removed however the build ends
+        try:
+            tmp = os.path.join(work, LIB_NAME)
+            objs = [os.path.join(work, os.path.basename(src) + ".o") for src in cu]
+            nvcc = _nvcc()
+            compile_flags = [f for f in FLAGS if f != "-shared"]
+            t0 = time.time()
+            out = _run([[nvcc, *compile_flags, "-I", CSRC, "-c", "-o", obj, src]
+                        for obj, src in zip(objs, cu)])
+            out += _run([[nvcc, *FLAGS, *objs, "-o", tmp]])  # the link
+            seconds = time.time() - t0
+            with open(log_path, "w") as f:
+                f.write(out)
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     log = open(log_path).read() if os.path.exists(log_path) else ""
     return ctypes.CDLL(lib), log, seconds
 

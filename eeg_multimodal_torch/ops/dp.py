@@ -24,8 +24,14 @@ def minmax_normalize(x):
 
 def eps_hat(w, epsilon: float):
     """Per-feature noise scale 1 / log((e^eps - w) / (1 - w)) (ref:
-    models.py:75, the '# fix' form). ``w`` is sigmoid(DP) in (0, 1)."""
-    return 1.0 / torch.log((math.exp(epsilon) - w) / (1.0 - w))
+    models.py:75, the '# fix' form). ``w`` is sigmoid(DP) in (0, 1).
+
+    Under the bf16 compute cast ``w`` is bf16, and the JAX package's dtype
+    promotion (ops/dp.py:41-42 there) gives f32 for e^eps - w (its e^eps is
+    an f32 array) but bf16 for 1 - w (a Python float against bf16); the
+    quotient and the log are f32. The casts below say the same; for an f32
+    ``w`` they do nothing."""
+    return 1.0 / torch.log((math.exp(epsilon) - w.float()) / (1.0 - w).float())
 
 
 def lap_dropout_fast(feature, dp_param, epsilon: float, noise):

@@ -146,17 +146,26 @@ def _check(f, dp, seed, g=None):
 class KernelWrapper:
     """A hand-written kernel's wrapper: checks inputs, launches, counts.
 
-    ``launches`` grows by one at each launch of the kernel, and nowhere else.
+    ``launches`` grows by one at each launch of the kernel, and nowhere else;
+    ``by_dtype`` splits that count by the dtype of the first argument, i.e.
+    by the instantiation launched.
     """
 
     def __init__(self, name, launch):
         self.name = name
-        self.launches = 0
         self._launch = launch
+        self.reset()
+
+    def reset(self):
+        """Set the counts to 0."""
+        self.launches = 0
+        self.by_dtype = {}
 
     def __call__(self, *args, **kwargs):
         out = self._launch(*args, **kwargs)
         self.launches += 1
+        dtype = str(args[0].dtype).replace("torch.", "")
+        self.by_dtype[dtype] = self.by_dtype.get(dtype, 0) + 1
         return out
 
 

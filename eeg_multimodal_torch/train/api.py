@@ -11,9 +11,8 @@ on-disk layout,
   logs/<train_type>/<path_suffix>{whole,best}_record.txt
 
 with the port's trainer underneath, on the card unless ``device="cpu"``.
-What the port does not run yet (the bf16 compute cast, DPSGD and the other
-model classes, the compact vocab, ``predict``) raises
-``NotImplementedError`` naming its ROADMAP item.
+What the port does not run yet (DPSGD and the other model classes,
+``predict``) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,7 +21,9 @@ import os
 from typing import Any, Dict, Optional
 
 from ..data import datasets as D
+from ..data.compact_vocab import build_compact_vocab, remap_pairing
 from ..models import fusion
+from ..models.bert import BertConfig
 from ..utils.device import resolve_device
 from ..utils.seeding import DEFAULT_SEED
 from .trainer import TrainConfig, Trainer
@@ -39,10 +40,10 @@ class TrainAndTest:
     eeg_model, eeg_model_coef, act_model, act_model_coef, cross_atn_type,
     epsilon).
 
-    ``compute_dtype`` keeps the JAX package's default, "bfloat16", which the
-    port does not run yet: pass "float32", the reference's own precision.
-    ``device`` is the card unless "cpu". After ``train_on`` the trainer of
-    the run stays in ``self.trainer``.
+    ``compute_dtype`` keeps the JAX package's default, "bfloat16" (the
+    forward on a bf16 copy of f32 master params); "float32" is the
+    reference's own precision. ``device`` is the card unless "cpu". After
+    ``train_on`` the trainer of the run stays in ``self.trainer``.
     """
 
     def __init__(
@@ -126,12 +127,39 @@ class TrainAndTest:
 
         ``auto_truncate`` drops all-padding token columns (exact, see
         ``data.datasets.truncate_tokens``); with it off the encoder runs at
-        the padded 512 tokens, where self-attention goes through the fused
-        attention kernels.
+        the padded 512 tokens.
+
+        ``compact_vocab`` remaps the token ids to the ones the data uses
+        (``data/compact_vocab.py``), shrinking the word table to those rows:
+        the trajectory is the same (rows never gathered get zero gradient,
+        so Adam leaves them as they are), and checkpoints scatter the table
+        back to full-vocab rows. ``vocab`` is a prebuilt ``CompactVocab``
+        for data (and ``bert_params``) the caller remapped already; pass one
+        or the other (api.py:118-228 of the JAX package).
         """
-        if compact_vocab or vocab is not None:
-            raise NotImplementedError(
-                "compact_vocab / vocab are not ported yet (ROADMAP.md, Next, item 4)")
+        if compact_vocab and vocab is not None:
+            raise ValueError("pass either compact_vocab=True or a prebuilt vocab")
+        if auto_truncate:
+            train_data, test_data = D.truncate_pair(train_data, test_data)
+
+        bert_params = self.bert_params
+        if compact_vocab and dp_mode != "DPSGD" and "t" in multimodal_type:
+            base_cfg = bert_config or BertConfig.for_coef(eeg_model_coef)
+            streams = []
+            for d in (train_data, test_data):
+                if multimodal_type[0] == "t":
+                    streams.append(d.eeg_input)
+                if multimodal_type[1] == "t":
+                    streams.append(d.act_input)
+            vocab = build_compact_vocab(streams, full_vocab=base_cfg.vocab_size)
+            train_data = remap_pairing(train_data, vocab)
+            test_data = remap_pairing(test_data, vocab)
+            bert_config = dataclasses.replace(base_cfg, vocab_size=vocab.size)
+            if bert_params is not None:
+                emb = dict(bert_params["embeddings"])
+                emb["word"] = vocab.compact_embeddings(emb["word"])
+                bert_params = {**bert_params, "embeddings": emb}
+
         fc = fusion.config_for(multimodal_type, dp_mode, cross_atn_type,
                                bert_coef=eeg_model_coef, dtype="float32")
         if bert_config is not None:
@@ -140,13 +168,11 @@ class TrainAndTest:
         tc = TrainConfig(batch_size=self.batch_size, learning_rate=self.learning_rate,
                          epochs=self.epochs, compute_dtype=self.compute_dtype,
                          seed=self.seed)
-
-        if auto_truncate:
-            train_data, test_data = D.truncate_pair(train_data, test_data)
         model_path = os.path.join(self.artifacts_root, "models", "custom", train_type,
                                   path_suffix, "best_f1.pickle")
         log_path = os.path.join(self.artifacts_root, "logs", train_type, path_suffix)
-        self.trainer = Trainer(fc, tc, bert_params=self.bert_params, device=self.device)
+        self.trainer = Trainer(fc, tc, bert_params=bert_params, device=self.device,
+                               vocab=vocab)
         return self.trainer.fit(train_data, test_data, epsilon, log_path=log_path,
                                 model_path=model_path, echo=self.echo)
 

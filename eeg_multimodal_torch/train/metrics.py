@@ -15,18 +15,20 @@ import torch
 def cross_entropy(logits, labels):
     """Per-sample CE, torch F.cross_entropy semantics (the caller reduces)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return -logp.gather(-1, labels[:, None])[:, 0]
+    return -logp.gather(-1, labels[..., None])[..., 0]
 
 
 def cal_loss(logits, labels, weight=None):
-    """(loss, accuracy, pred_label_id, label) as base_train.py:59-65."""
+    """(loss, accuracy, pred_label_id, label) as base_train.py:59-65: the
+    weighted means over the batch axis, the last of ``labels``. Leading axes
+    (a stack of batches, the batched eval) give one mean per batch."""
     ce = cross_entropy(logits, labels)
     pred = logits.argmax(dim=-1)
     correct = (pred == labels).to(torch.float32)
     if weight is None:
         weight = torch.ones_like(ce)
-    denom = weight.sum().clamp_min(1.0)
-    return (ce * weight).sum() / denom, (correct * weight).sum() / denom, pred, labels
+    denom = weight.sum(-1).clamp_min(1.0)
+    return (ce * weight).sum(-1) / denom, (correct * weight).sum(-1) / denom, pred, labels
 
 
 def f1_binary(y_true, y_pred) -> float:

@@ -14,6 +14,17 @@ elimination). The two phases draw their own dropout and DP noise, one after
 the other, from the epoch's generator, as ``k1``/``k2`` do in the JAX step.
 ``Trainer.fit`` runs the epochs with the legacy records and the best-F1
 checkpoint (trainer.py:655-777 there).
+
+With ``compute_dtype="bfloat16"`` the forward runs on a bf16 copy of the f32
+master tree, ``DP`` included, cast inside the step; the gradient goes back
+through the cast to the masters, and Adam updates them in f32. With
+``precast_params`` the bf16 copy of the model params is made once an epoch
+and refreshed in place after every Adam update (trainer.py:216-291 there).
+PyTorch keeps no excess precision at the cast, so the two give the same
+numbers: the gradient reaching the cast is bf16 either way. The carried copy
+does less work: on an H100 at S = 80 and batch 8 (``chip_smoke.py``'s
+profile) its step launches 2816 kernels against the in-step cast's 3331 and
+takes 16.8 ms of device time against 17.8.
 """
 from __future__ import annotations
 
@@ -25,36 +36,46 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..data.compact_vocab import CompactVocab
 from ..data.datasets import MultiModalArrays, epoch_indices, gather_batch
 from ..models import fusion
 from ..ops.optim import Adam
 from ..utils.device import resolve_device
 from ..utils.seeding import DEFAULT_SEED, derive_seed, generator
-from ..utils.trees import tree_items, tree_map, tree_map_with_path
+from ..utils.trees import tree_cast, tree_items, tree_map, tree_map_with_path
 from . import checkpoint as ckpt
 from . import metrics as M
 from .records import RunRecorder
 
 
+_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's ``TrainConfig`` (trainer.py:43-140 there), with its
-    names and defaults. The fields this port does not run yet refuse any
-    value but the faithful f32 one, naming the ROADMAP item that ports them;
-    none is ignored."""
+    """The JAX package's ``TrainConfig`` (trainer.py:43-140 there), every
+    field with its name and default. The fields this port does not run yet
+    refuse any value but the faithful one, naming the ROADMAP item that
+    ports them; none is ignored."""
 
     batch_size: int = 8  # ref: base_train.py:49
     learning_rate: float = 1e-6  # ref: base_train.py:50
     epochs: int = 50  # ref: base_train.py:51
     seed: int = DEFAULT_SEED  # ref: base_train.py:43
     f1_best_init: float = 0.5  # ref: base_train.py:164
+    # "bfloat16": the forward on a bf16 copy of the f32 master params
     compute_dtype: str = "float32"
     shuffle_eval: bool = False
     n_eval: int = 1
     share_phase_dropout: bool = False
     reuse_phase_features: Optional[bool] = None
+    # the Adam moments' storage dtypes; a bf16 nu is stored with stochastic
+    # rounding (ops/optim.py)
     adam_mu_dtype: str = "float32"
     adam_nu_dtype: str = "float32"
+    # carry the bf16 copy of the model params through the epoch, refreshed
+    # after each update, instead of casting the masters inside every step;
+    # nothing at compute_dtype float32
     precast_params: bool = False
     paired_phase_encode: bool = False
     # Write the best-F1 checkpoint once, at the end of fit(), from a
@@ -65,14 +86,27 @@ class TrainConfig:
     # With deferral on, flush a pending best to disk every N epochs, so a
     # run killed mid-loop keeps a recent best artifact. 0 = only at the end.
     defer_flush_epochs: int = 20
+    # Evaluate all the eval batches as one batched forward (one 608-row
+    # forward for the reference's 601 eval rows) instead of a loop of
+    # batch-sized ones. The rows are independent, so the per-batch loss and
+    # accuracy means are the loop's; the DP noise is drawn for all rows at
+    # once, from the same generator (another draw of the same law). On an
+    # H100, bf16 at S = 80, 601 rows take 42-43 ms batched against 976-1573
+    # ms in the loop (chip_smoke.py's eval phase).
+    eval_vmap_batches: bool = True
 
     def __post_init__(self):
+        for name in ("compute_dtype", "adam_mu_dtype", "adam_nu_dtype"):
+            if getattr(self, name) not in _DTYPES:
+                raise ValueError(f"{name}={getattr(self, name)!r}: the port runs {_DTYPES}")
         fast = [f for f in ("share_phase_dropout", "reuse_phase_features",
-                            "paired_phase_encode", "precast_params") if getattr(self, f)]
+                            "paired_phase_encode") if getattr(self, f)]
+        if self.precast_params and self.compute_dtype != "float32" and fast:
+            raise ValueError(  # trainer.py:166-175 there
+                "precast_params covers the faithful alternating and "
+                "single-optimizer steps; the paired/shared fast modes keep "
+                "the in-step cast")
         waits = [
-            (self.compute_dtype != "float32", f"compute_dtype={self.compute_dtype!r}", 1),
-            ((self.adam_mu_dtype, self.adam_nu_dtype) != ("float32", "float32"),
-             "bf16 Adam moments", 1),
             (bool(fast), f"the fast modes {fast}", 2),
             (self.n_eval != 1, f"n_eval={self.n_eval}", 3),
             (self.shuffle_eval, "shuffle_eval", 3),
@@ -111,14 +145,32 @@ class StepFunctions:
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
-        self.dp_opt = Adam(train_cfg.learning_rate)  # the (1, F) DP leaf
-        self.model_opt = Adam(train_cfg.learning_rate)
+        self.compute_dtype = getattr(torch, train_cfg.compute_dtype)
+        self.precast = train_cfg.precast_params and self.compute_dtype != torch.float32
+        self.dp_opt = Adam(train_cfg.learning_rate)  # the (1, F) DP leaf: f32 moments
+        self.model_opt = Adam(train_cfg.learning_rate,
+                              mu_dtype=getattr(torch, train_cfg.adam_mu_dtype),
+                              nu_dtype=getattr(torch, train_cfg.adam_nu_dtype),
+                              sr_seed=train_cfg.seed)
 
     def init_opt_states(self, params):
         def leaves(select):
             return [t for path, t in tree_items(params) if select(path)]
 
         return self.dp_opt.init(leaves(fusion.dp_param_predicate)), self.model_opt.init(leaves(_is_model))
+
+    def compute(self, params):
+        """``params`` in the compute dtype: the differentiable cast of
+        trainer.py:179-182 there (the tree itself at float32)."""
+        if self.compute_dtype == torch.float32:
+            return params
+        return tree_cast(params, self.compute_dtype)
+
+    def precast_copy(self, params):
+        """The compute-dtype copy of the model params that ``train_step``
+        takes with ``precast_params`` (``DP`` stays out: each phase casts
+        the live leaf)."""
+        return tree_cast({k: v for k, v in params.items() if k != "DP"}, self.compute_dtype)
 
     def loss_fn(self, params, batch, weight, epsilon, gen, hard, train, dp_noise=None):
         logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen,
@@ -127,27 +179,51 @@ class StepFunctions:
         return loss, acc, pred, logits
 
     def train_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
-                   dp_noise=(None, None), dropout=True):
+                   dp_noise=(None, None), dropout=True, params_c=None):
         """One faithful alternating step; updates ``params`` in place and
         returns (dp_os, model_os, loss, acc) with phase 2's loss and accuracy.
+
+        ``params_c``: the :meth:`precast_copy` of ``params`` (with
+        ``precast_params``), which the forwards read and which is refreshed
+        in place after the update (trainer.py:254-291 there); without it
+        each phase casts the masters (a no-op at f32).
 
         Test-only keywords: ``dp_noise`` hands each phase its Laplace(0, 1)
         DP noise, and ``dropout=False`` turns dropout off, so that the step
         can be held against the JAX reference's.
         """
+        cd = self.compute_dtype
+
+        def with_dp(dp):  # the precast copy with the given DP leaf, in params' order
+            return {k: (dp if k == "DP" else params_c[k]) for k in params}
+
         # phase 1: DP only, hard=False (base_train.py:183-195)
-        p1, (dp_alias,), dp_leaves = _track(params, fusion.dp_param_predicate)
+        if params_c is None:
+            p1, (dp_alias,), dp_leaves = _track(params, fusion.dp_param_predicate)
+            p1 = self.compute(p1)
+        else:
+            dp_leaves = [params["DP"]]
+            dp_alias = params["DP"].detach().requires_grad_()
+            p1 = with_dp(dp_alias.to(cd))
         loss1 = self.loss_fn(p1, batch, weight, epsilon, gen, hard=False,
                              train=dropout, dp_noise=dp_noise[0])[0]
         g_dp = torch.autograd.grad(loss1, [dp_alias])
         dp_os = self.dp_opt.update(dp_leaves, list(g_dp), dp_os)
 
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
-        p2, aliases, model_leaves = _track(params, _is_model)
+        if params_c is None:
+            p2, aliases, model_leaves = _track(params, _is_model)
+            p2 = self.compute(p2)
+        else:
+            # gradients w.r.t. the bf16 copy, cast up for the f32 update
+            p2, aliases, copies = _track(with_dp(params["DP"].detach().to(cd)), _is_model)
+            model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
         loss, acc, _, _ = self.loss_fn(p2, batch, weight, epsilon, gen, hard=True,
                                        train=dropout, dp_noise=dp_noise[1])
-        grads = torch.autograd.grad(loss, aliases)
-        model_os = self.model_opt.update(model_leaves, list(grads), model_os)
+        grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
+        model_os = self.model_opt.update(model_leaves, grads, model_os)
+        if params_c is not None:
+            torch._foreach_copy_(copies, model_leaves)
         return dp_os, model_os, loss.detach(), acc.detach()
 
     def cycle(self, *args, **kwargs):
@@ -159,10 +235,12 @@ class StepFunctions:
         """Every batch of ``idx`` once; returns (dp_os, model_os, mean loss,
         mean accuracy), the means of batch means (base_train.py:239-242)
         as device tensors."""
+        params_c = self.precast_copy(params) if self.precast else None
         losses, accs = [], []
         for b_idx, w in zip(idx, weight):
             dp_os, model_os, loss, acc = self.train_step(
-                params, dp_os, model_os, gather_batch(data, b_idx), w, epsilon, gen)
+                params, dp_os, model_os, gather_batch(data, b_idx), w, epsilon, gen,
+                params_c=params_c)
             losses.append(loss)
             accs.append(acc)
         return dp_os, model_os, torch.stack(losses).mean(), torch.stack(accs).mean()
@@ -170,10 +248,24 @@ class StepFunctions:
     @torch.no_grad()
     def eval_epoch(self, params, data, idx, weight, epsilon, gen, dp_noise=None):
         """Stochastic eval, one pass (n_eval = 1): hard=True, dropout off, DP
-        noise on. Returns (loss, acc, preds, labels, scores, weights), the
-        loss and accuracy as means of batch means, the per-row tensors
-        flattened over the batches, scores = logits[:, 1]. ``dp_noise``
-        (tests only) gives each batch's noise."""
+        noise on, the params cast to the compute dtype once. Returns (loss,
+        acc, preds, labels, scores, weights), the loss and accuracy as means
+        of batch means, the per-row tensors flattened over the batches,
+        scores = logits[:, 1]. With ``eval_vmap_batches`` all the batches
+        go through one forward (trainer.py:495-501 there), else one forward
+        each. ``dp_noise`` (tests only) gives each batch's noise."""
+        params = self.compute(params)
+        n_batches, B = idx.shape
+        if self.train_cfg.eval_vmap_batches:
+            batch = gather_batch(data, idx.reshape(-1))
+            noise = None if dp_noise is None else torch.cat(list(dp_noise))
+            logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, True, gen,
+                                  False, noise)
+            # per-batch means over the (n_batches, B) stack, with each batch's weights
+            losses, accs, _, _ = M.cal_loss(logits.reshape(n_batches, B, -1),
+                                            batch["labels"].reshape(n_batches, B), weight)
+            return (losses.mean(), accs.mean(), logits.argmax(dim=-1), batch["labels"],
+                    logits[:, 1], weight.reshape(-1))
         losses, accs, preds, labels, scores = [], [], [], [], []
         for i, (b_idx, w) in enumerate(zip(idx, weight)):
             batch = gather_batch(data, b_idx)
@@ -195,10 +287,14 @@ class Trainer:
 
     def __init__(self, fusion_cfg: fusion.FusionConfig,
                  train_cfg: TrainConfig = TrainConfig(), params=None, bert_params=None,
-                 device=None):
+                 device=None, vocab: Optional[CompactVocab] = None):
+        """``vocab``: the compact vocabulary the token ids were remapped to
+        (the word table has ``vocab.size`` rows); checkpoints then scatter
+        the table back to full-vocab rows."""
         self.device = resolve_device(device)
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
+        self.vocab = vocab
         if params is None:
             params = fusion.init(fusion_cfg, derive_seed(train_cfg.seed, "init"),
                                  self.device, bert_params=bert_params)
@@ -208,8 +304,16 @@ class Trainer:
 
     def export_params(self, params=None):
         """Params for checkpoint export: ``params`` (by default the live
-        tree) as it is, since the port has no compact vocab yet."""
-        return self.params if params is None else params
+        tree), with a compact vocab's word table scattered back to the
+        full-vocab rows (as a CPU tensor), so that state dicts keep the
+        reference's layout (trainer.py:604-618 there)."""
+        params = self.params if params is None else params
+        if self.vocab is None:
+            return params
+        word = params["bert"]["embeddings"]["word"].detach().cpu().numpy()
+        emb = {**params["bert"]["embeddings"],
+               "word": torch.from_numpy(self.vocab.expand_embeddings(word))}
+        return {**params, "bert": {**params["bert"], "embeddings": emb}}
 
     def run_epoch(self, epoch: int, train_dev, test_dev, n_train: int,
                   n_test: int, epsilon: float) -> Dict[str, Any]:

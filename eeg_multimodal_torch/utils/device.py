@@ -15,10 +15,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     never carries on quietly on the CPU. ``"cpu"`` is honoured as asked (the
     tests use it). Also pins true-f32 matmuls and convolutions: the JAX
     reference forces ``Precision.HIGHEST`` (models/layers.py there), which
-    TF32 would break.
+    TF32 would break; and f32 accumulation inside bf16 GEMMs, since the
+    JAX package's ``linear`` accumulates a bf16 product in f32 and rounds
+    once (``preferred_element_type=float32``), which cuBLAS's reduced-
+    precision split-K reductions would not.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

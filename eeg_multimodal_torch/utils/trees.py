@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import torch
+
 
 def tree_map(fn: Callable, tree: Any):
     """Apply ``fn`` to every leaf; dicts and lists keep their structure."""
@@ -36,3 +38,11 @@ def tree_items(tree: Any) -> List[Tuple[str, Any]]:
 def tree_size(tree: Any) -> int:
     """Total number of scalar elements."""
     return sum(leaf.numel() for _, leaf in tree_items(tree))
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast every floating leaf to ``dtype`` (``utils/trees.py::tree_cast``
+    of the JAX package); other leaves pass through. The cast is
+    differentiable: a gradient taken through it reaches the source leaves
+    in their own dtype."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, tree)

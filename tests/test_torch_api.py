@@ -189,20 +189,47 @@ def test_fit_writes_the_best_at_the_improving_epoch_unless_deferred(tmp_path, de
 
 
 def test_what_waits_is_refused(tmp_path):
+    """DPSGD, ``predict``, ``n_eval``, ``shuffle_eval`` and the shared/paired
+    fast modes still wait, each naming its ROADMAP item; ``precast_params``
+    with a fast mode is refused as the JAX package refuses it."""
     train, test = rows(4, seed=6), rows(4, seed=7)
     args = (train, test, "DPMLD", "x/", "ti")
-    with pytest.raises(NotImplementedError, match="compute_dtype='bfloat16'"):
-        TrainAndTest(device="cpu", artifacts_root=str(tmp_path)).train_on(
-            *args, "lapacian_dropout")
-    api = TrainAndTest(compute_dtype="float32", device="cpu", artifacts_root=str(tmp_path))
+    api = TrainAndTest(device="cpu", artifacts_root=str(tmp_path))  # the bf16 default
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.train_on(*args, "DPSGD")
-    with pytest.raises(NotImplementedError, match="compact_vocab"):
-        api.train_on(*args, "lapacian_dropout", compact_vocab=True)
     with pytest.raises(NotImplementedError, match="predict"):
         api.predict("best_f1.pickle")
-    for field in (dict(n_eval=5), dict(adam_nu_dtype="bfloat16"), dict(shuffle_eval=True),
-                  dict(share_phase_dropout=True)):
+    for field in (dict(n_eval=5), dict(shuffle_eval=True), dict(share_phase_dropout=True),
+                  dict(reuse_phase_features=True), dict(paired_phase_encode=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainConfig(**field)
+    with pytest.raises(ValueError, match="precast_params"):
+        TrainConfig(compute_dtype="bfloat16", precast_params=True, paired_phase_encode=True)
     assert not os.listdir(tmp_path)  # nothing ran
+
+
+def test_train_and_test_runs_its_bf16_default_with_a_compact_vocab_on_cpu(tmp_path):
+    """``TrainAndTest()`` at its default ``compute_dtype="bfloat16"`` through
+    ``train_on(compact_vocab=True)`` end to end: truncated rows, the bf16
+    forward on a copy of the f32 masters, records, and a trainer whose
+    checkpoint scatters the compact word table back to full-vocab rows."""
+    train, test = rows(8, seed=8), rows(4, seed=9)
+    launches = [k.launches for k in TA.KERNELS + dp_fused.KERNELS]
+    api = TrainAndTest(batch_size=4, learning_rate=1e-3, epochs=2, echo=False,
+                       artifacts_root=str(tmp_path), device="cpu")
+    assert api.compute_dtype == "bfloat16"
+    out = api.train_on(train, test, "DPMLD", "bf16/", "ti", "lapacian_dropout",
+                       bert_config=TB.BertConfig(**TINY), compact_vocab=True)
+    assert [k.launches for k in TA.KERNELS + dp_fused.KERNELS] == launches
+    tr = api.trainer
+    assert tr.steps.compute_dtype == torch.bfloat16 and not tr.steps.precast
+    for row in out["history"]:
+        assert all(np.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1"))
+    assert all(leaf.dtype == torch.float32 for _, leaf in tree_items(tr.params))  # masters
+    assert float(tr.params["DP"].abs().max()) > 0
+    words = tr.params["bert"]["embeddings"]["word"].shape[0]
+    assert tr.vocab is not None and words == tr.vocab.size
+    assert tr.export_params()["bert"]["embeddings"]["word"].shape == (50, 768)
+    logs = tmp_path / "logs" / "DPMLD" / "bf16"
+    assert [r["epoch"] for r in TR.parse_legacy_records(
+        (logs / "whole_record.txt").read_text())] == [1, 2]

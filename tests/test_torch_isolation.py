@@ -77,6 +77,8 @@ def test_entry_points_refuse_to_run_without_a_card():
         TrainAndTest(compute_dtype="float32")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    # bf16 GEMMs accumulate in f32, as preferred_element_type=float32 does there
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
 
 
 def test_attention_kernel_wrappers_refuse_cpu_tensors():
