@@ -9,8 +9,10 @@ attention, forward, backward on the tensor cores and the dropout-mask test
 hook), and holds each against its
 plain PyTorch version: the DP forward bit for bit where the card's math
 library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
-attention mask bit for bit against ``keep_mask_plain``; and a 2-layer BERT
-at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
+attention mask bit for bit against ``keep_mask_plain``, also with a seed
+vector of G = 2 over 2B rows (equal to two G = 1 calls, bit for bit, the
+forward and backward too); and a 2-layer BERT at S = 512 on the card
+against the CPU. Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
 
@@ -23,6 +25,16 @@ stochastic rounding on the card. Then drives the main paths at full width
    configuration (bf16 compute, bf16 Adam moments with stochastic rounding,
    ``precast_params``, compact vocab, composed DP) through ``Trainer.fit``,
    writing and reloading a full-vocab best checkpoint;
+4. ``share_phase_dropout`` (features encoded once), fused DP, f32, and
+   sharing without reuse, through ``Trainer.fit``;
+5. ``paired_phase_encode`` (one encoder forward at 2B rows), bf16 with the
+   in-step cast, through ``Trainer.fit``; then ``n_eval=4`` and
+   ``shuffle_eval`` through ``Trainer.fit``; ``StepFunctions.cycle`` at
+   K = 2 over the bench configuration under
+   ``torch.cuda.set_sync_debug_mode("error")``, against two
+   ``Trainer.run_epoch`` calls; ``TrainAndTest.predict`` on the bench
+   configuration's checkpoint at n_eval = 1 and 4 (against ``eval_epoch``,
+   timed at 601 rows, the vocabulary range check raising before any launch);
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -32,8 +44,8 @@ eval as one batched forward an epoch) and its logits on the card against
 the CPU (f32 with the composed and the fused DP block; bf16 at a bf16
 tolerance), profiles one train step of each (device time by kernel, the
 host's kernel launches and top host ops; at S = 80 with the attention gate
-open and closed, and bf16 with ``precast_params`` and with the in-step cast
-in turns with f32), times the eval epoch batched against the batch loop at
+open and closed, bf16 with ``precast_params`` and with the in-step cast in
+turns with f32, and the fast modes in turns with f32), times the eval epoch batched against the batch loop at
 601 rows, and times every kernel
 beside its bound, its plain version, an empty kernel's launch and, where
 one exists, the one PyTorch call that computes the same function. Exits
@@ -45,6 +57,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -93,6 +106,7 @@ BF16_LOGIT_TOL = dict(rtol=0.0, atol=5e-4)
 # the host's kernel launches as the profiler names them (cudaLaunchKernel*,
 # and cuLaunchKernel*, through which cuBLAS launches), and its copies and syncs
 LAUNCH_API = re.compile(r"cu(da)?LaunchKernel")
+ROW = ("train_loss", "train_acc", "test_loss", "test_acc", "f1")  # run_epoch's numbers
 SYNC_API = re.compile(r"cuda(Memcpy|Memset|StreamSynchronize|DeviceSynchronize|EventSynchronize"
                       r"|Malloc|Free)")
 
@@ -222,10 +236,11 @@ def synth_rows(D, rng, n, seq=512):
     )
 
 
-def profile_step(torch, step, label, flops):
+def profile_step(torch, step, label, flops, work="2 forwards + 1 backward ~ 4 forwards"):
     """Host step time, device busy time, idle share, the top kernels, the
     host's kernel launches and the top host ops of one steady-state train
-    step; returns the device us by kernel name."""
+    step; returns the device us by kernel name. ``work`` says what ``flops``
+    counts."""
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -234,7 +249,7 @@ def profile_step(torch, step, label, flops):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 5 * 1e3
     print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s); matmul "
-          f"work ~{flops / 1e9:.0f} GFLOP/step (2 forwards + 1 backward ~ 4 forwards) = "
+          f"work ~{flops / 1e9:.0f} GFLOP/step ({work}) = "
           f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak")
     host = {}
     by_kernel = device_us(torch, step, n=3, host=host)
@@ -336,6 +351,79 @@ def check_attention_kernels(torch, A, gen, dev):
         f"{name} {dt} {e:.3g}" for (name, dt), e in sorted(worst.items()))
         + " (CUDA-core design: f32 2.98e-7 / 4.77e-7, bf16 1.95e-3 / 7.81e-3)")
     return err
+
+
+def check_grouped_attention(torch, A, gen, dev):
+    """The attention kernels with a seed vector of G = 2 over 2B rows, as the
+    paired phase encode's forward calls them: the mask kernel at B = 8 per
+    half, S = 80 and 512, equals two G = 1 calls and ``keep_mask_plain``,
+    bit for bit; forward and backward at (16, 12, 80, 64), f32 and bf16,
+    p = 0.1, against their plain versions with that mask, and equal to two
+    G = 1 calls over the halves, bit for bit. Returns the max errors as
+    ``{(kernel, dtype): max |kernel - plain|}``."""
+    seeds = torch.tensor([2 ** 40 + 3, 17], dtype=torch.int64, device=dev)
+    for S in (80, 512):
+        both = A.attn_dropout_mask(seeds, 16, 12, S, ATTN_DROP)
+        halves = torch.cat([A.attn_dropout_mask(seeds[i:i + 1], 8, 12, S, ATTN_DROP)
+                            for i in range(2)])
+        check(torch.equal(both, halves), f"the G = 2 mask differs from two G = 1 masks at S = {S}")
+        check(torch.equal(both.bool(), A.keep_mask_plain(seeds.tolist(), 16, 12, S, ATTN_DROP,
+                                                         dev)),
+              f"the G = 2 mask differs from keep_mask_plain at S = {S}")
+    print("  G = 2 masks at (2 x 8, 12, 80) and (2 x 8, 12, 512) equal two G = 1 calls and "
+          "keep_mask_plain, bit for bit")
+    err = {}
+    B, H, S, D = 16, 12, 80, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        bias[:, VALID_TOKENS:] = NEG
+        bias[9, 20:] = NEG  # a shorter row in the second half
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
+        out, stats = A.attn_fwd(q, k, v, bias, seeds, ATTN_DROP)
+        keep = A.attn_dropout_mask(seeds, B, H, S, ATTN_DROP).bool()
+        plain = A.attention_plain(q, k, v, bias, keep, ATTN_DROP)
+        torch.testing.assert_close(out.float(), plain.float(),
+                                   **ATTN_TOL["f32_fwd" if f32 else "bf16"])
+        grads = A.attn_bwd(q, k, v, bias, seeds, ATTN_DROP, out, stats, dout)
+        plain_g = A.attention_bwd_plain(q, k, v, bias, keep, ATTN_DROP, dout)
+        for g, pg in zip(grads, plain_g):
+            torch.testing.assert_close(g.float(), pg.float(), **ATTN_TOL["f32_bwd" if f32 else "bf16"])
+        name = str(dtype)[6:]
+        err[("attn_fwd", name)] = float((out.float() - plain.float()).abs().max())
+        err[("attn_bwd", name)] = max(float((g.float() - pg.float()).abs().max())
+                                      for g, pg in zip(grads, plain_g))
+        parts = []
+        for i, rows in enumerate((slice(0, B // 2), slice(B // 2, B))):
+            o, st = A.attn_fwd(q[rows], k[rows], v[rows], bias[rows], seeds[i:i + 1], ATTN_DROP)
+            parts.append((o, *A.attn_bwd(q[rows], k[rows], v[rows], bias[rows], seeds[i:i + 1],
+                                         ATTN_DROP, o, st, dout[rows])))
+        check(all(torch.equal(t, torch.cat(halves)) for t, *halves in zip((out, *grads), *parts)),
+              f"{name}: the G = 2 call differs from two G = 1 calls")
+        print(f"  {(B, H, S, D)} {name} G = 2, p = {ATTN_DROP}: max|out - plain| "
+              f"{err[('attn_fwd', name)]:.3g}, max|grad - plain| {err[('attn_bwd', name)]:.3g}; "
+              "forward and gradients equal two G = 1 calls, bit for bit")
+    return err
+
+
+def write_split(root, split, arrays):
+    """A ``ti`` split as the reference's files under ``root`` (the layout
+    ``TrainAndTest`` reads, base_train.py:77-125): the label CSV, the BERT
+    token pickle and the CLIP embedding pickle."""
+    processed = os.path.join(root, "data", "processed")
+    os.makedirs(processed, exist_ok=True)
+    with open(os.path.join(processed, f"{split}_label.csv"), "w") as f:
+        f.write("label\n" + "".join(f"{int(x)}\n" for x in arrays.labels))
+    items = [{"input_ids": ids[None], "attention_mask": m[None]}
+             for ids, m in zip(arrays.eeg_input, arrays.eeg_mask)]
+    for sub, obj in (("EEG/txt/bert_bert_base_uncased", items),
+                     ("act/img/clip_ViT_B_32", arrays.act_input[:, 0, :])):
+        path = os.path.join(root, "data", "embedding", sub)
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, f"{split}.pickle"), "wb") as f:
+            pickle.dump(obj, f)
 
 
 def check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev):
@@ -447,6 +535,7 @@ def main():
     from eeg_multimodal_torch.train.records import parse_legacy_records
     from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig, Trainer
     from eeg_multimodal_torch.utils.device import resolve_device
+    from eeg_multimodal_torch.utils.seeding import DEFAULT_SEED, generator
     from eeg_multimodal_torch.utils.trees import tree_cast, tree_items, tree_map, tree_size
 
     dev = resolve_device()
@@ -542,6 +631,9 @@ def main():
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
     err.update(check_attention_kernels(torch, A, gen, dev))
+    print("  G = 2 max errors: " + ", ".join(
+        f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(torch, A, gen,
+                                                                            dev).items()))
     print(f"  (checks {time.time() - t0:.1f} s)")
 
     phase("reference check: 2-layer BERT at S = 512, card (attention kernels) against CPU")
@@ -730,6 +822,7 @@ def main():
     phase("bench.py's configuration through Trainer.fit: bf16 compute and Adam moments, "
           "precast_params, compact vocab, composed DP, S = 80")
     train_b, test_b = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    test_b_full = test_b  # full-vocab ids, for predict on the exported checkpoint
     vocab = build_compact_vocab([train_b.eeg_input, test_b.eeg_input])
     train_b, test_b = remap_pairing(train_b, vocab), remap_pairing(test_b, vocab)
     fc_full = fusion.config_for("ti", "lapacian_dropout")
@@ -778,7 +871,6 @@ def main():
           f"rows ({vocab.size} trained, the rest 0) and equals the best params; Adam moments "
           f"bf16, {moments.packed['nu'].numel()} each, nu finite")
     del loaded, best, word, snaps
-    shutil.rmtree(root3)
 
     phase("profile: steady-state S = 80 train step, the bench configuration (bf16) with "
           "precast_params and with the in-step cast, in turns with path 1's f32 step")
@@ -828,7 +920,203 @@ def main():
     print("  eval epoch, host ms in turns (batched, loop, loop, batched): "
           f"{eval_ms['batched'][0]:.2f}, {eval_ms['loop'][0]:.2f}, {eval_ms['loop'][1]:.2f}, "
           f"{eval_ms['batched'][1]:.2f}")
-    del trainer, train_dev, test_dev, bench, api3, tr3, evals, train_b_dev, test_b_dev
+    del evals
+
+    # -- the rest of the trainer: the fast modes, n_eval, shuffle_eval ---------
+    def by_dtype(dp, attn_f, attn_b, dtype="float32"):
+        """Launch counts as KernelWrapper.by_dtype gives them."""
+        return {name: ({dtype: n} if n else {}) for name, n in
+                (("dp_fwd", dp[0]), ("dp_bwd", dp[1]), ("attn_fwd", attn_f),
+                 ("attn_bwd", attn_b))}
+
+    def fit_path(label, fc_, tc_, want):
+        """Two epochs of ``Trainer.fit`` on path 1's rows; checks the
+        launches by dtype, finite losses, F1 in [0, 1] and DP trained."""
+        tr = Trainer(fc_, tc_)
+        dp_before = tr.params["DP"].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in all_kernels:
+            k.reset()
+        res = tr.fit(train, test, EPS, echo=False)
+        got = {k.name: dict(k.by_dtype) for k in all_kernels}
+        print_rows(res["history"], steps)
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches by "
+              f"dtype {got}")
+        check_history(res["history"], label)
+        check(not torch.equal(tr.params["DP"], dp_before), f"{label}: DP did not train")
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        return tr, res["history"]
+
+    # eval: one batched forward an epoch; the fused DP block once per forward
+    eval_fwd = 2 * layers
+    phase("main path 4: share_phase_dropout (features encoded once, reuse_phase_features), "
+          "fused DP, f32, S = 80, through Trainer.fit")
+    tr4, rows4 = fit_path("path 4", fc, TrainConfig(share_phase_dropout=True, epochs=2),
+                   by_dtype((2 * (2 * steps + 1), 2 * 2 * steps),
+                            layers * steps * 2 + eval_fwd, layers * steps * 2))
+    phase("share_phase_dropout without reuse_phase_features, fused DP, f32, S = 80, through "
+          "Trainer.fit")
+    _, rows_shared = fit_path(
+        "share without reuse", fc,
+        TrainConfig(share_phase_dropout=True, reuse_phase_features=False, epochs=2),
+        by_dtype((2 * (2 * steps + 1), 2 * 2 * steps), layers * 2 * steps * 2 + eval_fwd,
+                 layers * steps * 2))
+    # reuse is a rewrite of sharing without it: the same draws, one encoder pass
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(rows4, rows_shared)
+              for k in ROW)
+    print(f"  path 4's rows against sharing without reuse: max relative difference {rel:.3g}")
+    check(rel <= 1e-5, "reuse_phase_features differs from sharing without it")
+    phase("main path 5: paired_phase_encode (both phases' encoder forwards as one at 2B "
+          "rows), bf16 with the in-step cast, composed DP, S = 80, through Trainer.fit")
+    tr5, _ = fit_path("path 5", fc_full, TrainConfig(paired_phase_encode=True,
+                                                  compute_dtype="bfloat16", epochs=2),
+                   by_dtype((0, 0), layers * steps * 2 + eval_fwd, layers * steps * 2,
+                            "bfloat16"))
+    for label, extra in (("n_eval=4", dict(n_eval=4)), ("shuffle_eval", dict(shuffle_eval=True))):
+        phase(f"TrainConfig({label}), path 1's configuration otherwise, through Trainer.fit "
+              f"(the eval {'4 x ' if 'n_eval' in extra else ''}32 rows in one forward)")
+        fit_path(label, fc, TrainConfig(epochs=2, **extra),
+                 by_dtype((2 * (2 * steps + 1), 2 * 2 * steps),
+                          layers * 2 * steps * 2 + eval_fwd, layers * steps * 2))
+
+    phase("profile: steady-state S = 80 train step of the fast modes, in turns with path 1's "
+          "faithful f32 step")
+    mode_steps = {"f32, path 1": (step_fn(trainer, train_dev), 4, "2 forwards + 1 backward"),
+                  "f32, share + reuse, path 4": (step_fn(tr4, train_dev), 3,
+                                                 "1 forward + 1 backward"),
+                  "bf16, paired, path 5": (step_fn(tr5, train_dev), 6,
+                                           "1 forward + 1 backward at 2B")}
+    for label in ("f32, path 1", "f32, share + reuse, path 4", "bf16, paired, path 5",
+                  "bf16, paired, path 5", "f32, share + reuse, path 4", "f32, path 1"):
+        fn, forwards, work = mode_steps[label]
+        by_kernel = profile_step(torch, fn, f"S = 80, {label}",
+                                 forwards * forward_matmul_flops(tc.batch_size, 80),
+                                 f"{work} ~ {forwards} forwards")
+        if by_kernel:
+            tc_us, simt_us = gemm_split(by_kernel)
+            attn = sum(v for k, v in by_kernel.items() if "attn_" in k)
+            print(f"  GEMMs on the tensor cores {tc_us / 1e3:.2f} ms/step, on the CUDA cores "
+                  f"{simt_us / 1e3:.2f} ms/step; attention kernels {attn:.1f} us/step")
+    del mode_steps, tr4, tr5
+
+    phase("StepFunctions.cycle: K = 2 epochs of the bench configuration under "
+          "torch.cuda.set_sync_debug_mode('error'), against two Trainer.run_epoch calls from "
+          "the same state")
+    by_epoch, cycled = Trainer(fc_b, tc_b, vocab=vocab), Trainer(fc_b, tc_b, vocab=vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_rows = [[row[k] for k in ROW] for row in
+                 (by_epoch.run_epoch(e, train_b_dev, test_b_dev, N_TRAIN, N_EVAL, EPS)
+                  for e in range(2))]
+    epochs_ms = (time.perf_counter() - t0) * 1e3
+    cycle_in = cycled.cycle_inputs(range(2), N_TRAIN, N_EVAL)
+    torch.cuda.synchronize()
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cycled.dp_os, cycled.model_os, out = cycled.steps.cycle(
+            cycled.params, cycled.dp_os, cycled.model_os, train_b_dev, test_b_dev, *cycle_in, EPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueued_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycle_ms = (time.perf_counter() - t0) * 1e3
+    launches_cycle = {k.name: dict(k.by_dtype) for k in all_kernels}
+    rows = out.tolist()
+    print(f"  rows {rows}")
+    print(f"  cycle {cycle_ms:.1f} ms host (returned after {enqueued_ms:.1f} ms, no sync); two "
+          f"run_epoch calls before it {epochs_ms:.1f} ms; launches by dtype {launches_cycle}")
+    check(launches_cycle == want_bf16, f"cycle launches {launches_cycle}, expected {want_bf16}")
+    check(rows == want_rows, f"cycle rows {rows} differ from run_epoch's {want_rows}")
+    check(all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(cycled.params),
+                                                          tree_items(by_epoch.params))),
+          "cycle's params differ from run_epoch's")
+    print("  no host sync inside cycle; its rows and params equal two run_epoch calls' exactly")
+    del by_epoch, cycled, cycle_in, out
+
+    phase("TrainAndTest.predict on the bench configuration's best checkpoint (full-vocab "
+          "rows), bf16, n_eval = 1 and 4; 601 rows timed; the vocabulary range check")
+    write_split(root3, "test", test_b_full)
+    rows601 = np.arange(601) % N_EVAL  # the reference's eval size, the 32 rows cycled
+    write_split(root3, "val601", dataclasses.replace(
+        test_b_full, eeg_input=test_b_full.eeg_input[rows601],
+        eeg_mask=test_b_full.eeg_mask[rows601], act_input=test_b_full.act_input[rows601],
+        act_mask=test_b_full.act_mask[rows601], labels=test_b_full.labels[rows601]))
+    api_p = TrainAndTest(data_root=root3, echo=False)  # the bf16 default, batch 8
+    loaded = load_torch_checkpoint(ckpt_b, fc_full, dev)
+    pred_dev = D.truncate_tokens(test_b_full).to_device(dev)
+    pidx, pw = D.epoch_indices(N_EVAL, api_p.batch_size, False, device=dev)
+    for n_eval in (1, 4):
+        for k in all_kernels:
+            k.reset()
+        csv_path = os.path.join(root3, f"predict_{n_eval}.csv")
+        res_p = api_p.predict(ckpt_b, n_eval=n_eval, epsilon=EPS, out_csv=csv_path)
+        got = {k.name: dict(k.by_dtype) for k in all_kernels}
+        want_p = by_dtype((0, 0), layers, 0, "bfloat16")
+        check(got == want_p, f"predict n_eval={n_eval}: launches {got}, expected {want_p}")
+        steps_p = StepFunctions(fc_full, TrainConfig(compute_dtype="bfloat16", n_eval=n_eval), dev)
+        loss_p, _, preds_p, _, scores_p, _ = steps_p.eval_epoch(
+            loaded, pred_dev, pidx, pw, EPS, generator(DEFAULT_SEED, dev))
+        check(res_p["loss"] == float(loss_p)
+              and np.array_equal(res_p["predictions"], preds_p.cpu().numpy())
+              and np.array_equal(res_p["scores"], scores_p.float().cpu().numpy()),
+              f"predict n_eval={n_eval} differs from eval_epoch on the loaded params")
+        n_lines = len(open(csv_path).read().splitlines())
+        check(n_lines == N_EVAL + 1, f"the CSV has {n_lines} lines, not {N_EVAL + 1}")
+        print(f"  n_eval = {n_eval}: loss {res_p['loss']:.4f}, accuracy {res_p['accuracy']:.3f}, "
+              f"f1 {res_p['f1']:.3f}; equal to eval_epoch on the loaded params; CSV {n_lines} "
+              f"lines; launches {got} (one forward of {n_eval} x {N_EVAL} rows)")
+    for n_eval in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res_p = api_p.predict(ckpt_b, split="val601", n_eval=n_eval, epsilon=EPS)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        check(len(res_p["predictions"]) == 601, "predict did not return 601 rows")
+        steps_p = StepFunctions(fc_full, TrainConfig(compute_dtype="bfloat16", n_eval=n_eval), dev)
+        data601 = D.truncate_tokens(api_p._load_split("val601", "ti", "bert", "bert-base-uncased",
+                                                      "clip", "ViT-B/32")).to_device(dev)
+        idx601, w601 = D.epoch_indices(601, api_p.batch_size, False, device=dev)
+        eval_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps_p.eval_epoch(loaded, data601, idx601, w601, EPS, gen)
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+        busy = sum(device_us(torch, lambda: steps_p.eval_epoch(loaded, data601, idx601, w601,
+                                                              EPS, gen), 1).values()) / 1e3
+        print(f"  601 rows, n_eval = {n_eval} ({n_eval * idx601.numel()} rows x S = "
+              f"{data601['eeg_input'].shape[1]} in one forward): predict {predict_ms:.1f} ms "
+              f"host (checkpoint load included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; its eval epoch alone "
+              f"{', '.join(f'{m:.2f}' for m in eval_ms)} ms host, {busy:.2f} ms device busy")
+    with open(ckpt_b, "rb") as f:
+        sd = pickle.load(f)
+    word_key = "bert.embeddings.word_embeddings.weight"
+    sd[word_key] = sd[word_key][:1000]
+    small = os.path.join(root3, "small_vocab.pickle")
+    with open(small, "wb") as f:
+        pickle.dump(sd, f)
+    del sd
+    for k in all_kernels:
+        k.reset()
+    try:
+        api_p.predict(small, n_eval=1, epsilon=EPS)
+        fail("predict took ids past a 1000-row word table")
+    except ValueError as e:
+        print(f"  1000-row word table: ValueError before any launch: {str(e)[:90]}")
+    check(all(k.launches == 0 for k in all_kernels), "predict launched a kernel before raising")
+    torch.cuda.synchronize()  # a device-side assert would surface here, and below
+    check(float(torch.ones(8, device=dev).sum()) == 8.0, "the CUDA context is unusable")
+    print("  the CUDA context is still usable")
+    shutil.rmtree(root3)
+    del loaded, pred_dev, data601, api_p, steps_p
+
+    del trainer, train_dev, test_dev, bench, api3, tr3, train_b_dev, test_b_dev
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)

@@ -71,9 +71,14 @@
 //    dS from shared memory) and attn_dq_kernel (one block per 64 queries,
 //    looping over key tiles of 16). Both recompute s and p = exp(s - m) / l
 //    and regenerate the mask. Deterministic: no atomics.
-//  - dropout bits: Philox4x32-10 (philox.cuh) keyed by the seed, a one-element int64
-//    device tensor read here (no host sync). One call gives four words and
+//  - dropout bits: Philox4x32-10 (philox.cuh) keyed by a seed read here from
+//    an int64 device tensor (no host sync). One call gives four words and
 //    serves the four elements one thread holds in a C fragment (keep_bits).
+//    The seed tensor holds G seeds, G dividing B: batch row b takes seed
+//    b / (B / G), and its mask counter counts b mod (B / G) in place of b,
+//    so one call over G stacked batches of B / G rows draws exactly the
+//    masks of G calls over one batch each (the paired phase encode's two
+//    phases in one 2B forward). G = 1 is the plain single-seed call.
 //  - q, k, v and dO come in as (B, H, S, D) views with (b, h, s) strides
 //    and data pointers that are multiples of 16 bytes and a unit last
 //    stride (the wrapper checks), so the packed QKV projection needs no
@@ -116,11 +121,11 @@ struct Params {
   const void *q, *k, *v, *o, *dout;
   int64_t qs[3], ks[3], vs[3], ds[3];  // (b, h, s) strides in elements
   const float* bias;                   // (B, S)
-  const int64_t* seed;                 // one element
+  const int64_t* seed;                 // G elements, one per rows_per_seed batch rows
   void *out, *dq, *dk, *dv;            // (B, S, H, D)
   float* stats;                        // (2, B, H, S): row max m, row sum l
   float* delta;                        // (B, H, S)
-  int B, H, S;
+  int B, H, S, rows_per_seed;  // rows_per_seed = B / G
   float scale, keep_prob, inv_keep;  // inv_keep = 1 / keep_prob
   uint32_t threshold;
   int dropout;
@@ -346,13 +351,14 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld, int 
 // serves the group of rows {i0, i0 + 8} x columns {j0, j0 + 1}, with
 // i0 = (i & ~15) | (i & 7) and j0 = j & ~1: the four elements one thread
 // holds in an m16n8 C fragment whose rows start at a multiple of 16. The
-// counter is ((b H + h) S + i0) S + j0 (head_base = (b H + h) S); element
+// counter is ((b' H + h) S + i0) S + j0 (mask_base = (b' H + h) S, with
+// b' = b mod rows_per_seed, the row within its seed's group); element
 // (i, j) takes word 2 ((i >> 3) & 1) + (j & 1), its place c0..c3 in the
 // fragment. So the mask depends on (seed, b, h, i, j) alone, never on the
 // tiling. Bit e of the result is set when fragment element e is kept.
-__device__ __forceinline__ uint32_t keep_bits(uint64_t head_base, int S, int i0, int j0,
+__device__ __forceinline__ uint32_t keep_bits(uint64_t mask_base, int S, int i0, int j0,
                                               uint64_t seed, uint32_t threshold) {
-  const uint4 w = philox4x32_10((head_base + (uint64_t)i0) * (uint64_t)S + (uint64_t)j0, seed);
+  const uint4 w = philox4x32_10((mask_base + (uint64_t)i0) * (uint64_t)S + (uint64_t)j0, seed);
   return (uint32_t)((w.x >> 8) < threshold) | ((uint32_t)((w.y >> 8) < threshold) << 1) |
          ((uint32_t)((w.z >> 8) < threshold) << 2) | ((uint32_t)((w.w >> 8) < threshold) << 3);
 }
@@ -388,8 +394,9 @@ __global__ void __launch_bounds__(NW * 32, smem_blocks(FwdTiles<float, D, NW, BK
   const T* k = (const T*)p.k + b * p.ks[0] + h * p.ks[1];
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const float* bias = p.bias + (int64_t)b * S;
-  const uint64_t seed = (uint64_t)p.seed[0];
-  const uint64_t head_base = (uint64_t)(b * H + h) * S;
+  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
+  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
   const int n_tiles = (S + BK - 1) / BK;
 
   load_tile<T, BQ, D, LQ, NT>(sQ, q, p.qs[2], q0, S);
@@ -441,7 +448,7 @@ __global__ void __launch_bounds__(NW * 32, smem_blocks(FwdTiles<float, D, NW, BK
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
       const uint32_t keep =
-          p.dropout ? keep_bits(head_base, S, i0, k0 + n * 8 + 2 * t, seed, p.threshold) : 15u;
+          p.dropout ? keep_bits(mask_base, S, i0, k0 + n * 8 + 2 * t, seed, p.threshold) : 15u;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = fast_exp(s[n][e] - m[e >> 1]);
@@ -574,8 +581,9 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DkdvTiles<float, D>::smem)
   const T* k = (const T*)p.k + b * p.ks[0] + h * p.ks[1];
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const T* dout = (const T*)p.dout + b * p.ds[0] + h * p.ds[1];
-  const uint64_t seed = (uint64_t)p.seed[0];
-  const uint64_t head_base = (uint64_t)(b * H + h) * S;
+  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
+  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
   const int ka = 16 * warp;  // the warp's keys in the block
 
   const int n_tiles = (S + BQ_KV - 1) / BQ_KV;
@@ -621,7 +629,7 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DkdvTiles<float, D>::smem)
 #pragma unroll
     for (int n = 0; n < NKA; ++n) {
       const int jl = ka + n * 8 + 2 * t, j0 = k0 + jl;
-      const uint32_t keep = p.dropout ? keep_bits(head_base, S, i0, j0, seed, p.threshold) : 15u;
+      const uint32_t keep = p.dropout ? keep_bits(mask_base, S, i0, j0, seed, p.threshold) : 15u;
       float pd[4], ds[4];
       softmax_grad4<T>(p, s[n], dp[n], rs, bias[n], keep, i0, j0, pd, ds);
       store2(sPd + g * LP + jl, pd[0], pd[1]);
@@ -679,8 +687,9 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DqTiles<float, D>::smem))
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const T* dout = (const T*)p.dout + b * p.ds[0] + h * p.ds[1];
   const float* bias = p.bias + (int64_t)b * S;
-  const uint64_t seed = (uint64_t)p.seed[0];
-  const uint64_t head_base = (uint64_t)(b * H + h) * S;
+  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
+  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
   const int n_tiles = (S + BK_DQ - 1) / BK_DQ;
 
   load_tile<T, BQ_DQ, D, LQ, NT_BWD>(sQ, q, p.qs[2], q0, S);
@@ -715,7 +724,7 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DqTiles<float, D>::smem))
       const int j0 = k0 + n * 8 + 2 * t;
       const float bj[2] = {j0 < S ? __ldg(bias + j0) : 0.f,
                            j0 + 1 < S ? __ldg(bias + j0 + 1) : 0.f};
-      const uint32_t keep = p.dropout ? keep_bits(head_base, S, i0, j0, seed, p.threshold) : 15u;
+      const uint32_t keep = p.dropout ? keep_bits(mask_base, S, i0, j0, seed, p.threshold) : 15u;
       float pd[4], ds[4];
       softmax_grad4<T>(p, s[n], dp[n], rs, bj, keep, i0, j0, pd, ds);
       store2(sdS + g * LS + n * 8 + 2 * t, ds[0], ds[1]);
@@ -739,17 +748,20 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DqTiles<float, D>::smem))
 
 // The keep mask of (B, H, S, S) as uint8, one thread per Philox group
 // (rows i0 with bit 3 clear, even columns j0)
-__global__ void attn_dropout_mask_kernel(int BH, int S, const int64_t* seed_ptr,
-                                         uint32_t threshold, uint8_t* out) {
-  const uint64_t seed = (uint64_t)seed_ptr[0];
+__global__ void attn_dropout_mask_kernel(int B, int H, int S, int rows_per_seed,
+                                         const int64_t* seed_ptr, uint32_t threshold,
+                                         uint8_t* out) {
   const int half = (S + 1) / 2;
-  const int64_t n = (int64_t)BH * S * half;
+  const int64_t n = (int64_t)B * H * S * half;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (int64_t)gridDim.x * blockDim.x) {
     const int j0 = 2 * (int)(e % half), i0 = (int)((e / half) % S);
     const int64_t bh = e / ((int64_t)half * S);
     if (i0 & 8) continue;
-    const uint32_t keep = keep_bits((uint64_t)bh * S, S, i0, j0, seed, threshold);
+    const int b = (int)(bh / H), h = (int)(bh % H);
+    const uint64_t mask_base = (uint64_t)((b % rows_per_seed) * H + h) * S;
+    const uint32_t keep =
+        keep_bits(mask_base, S, i0, j0, (uint64_t)seed_ptr[b / rows_per_seed], threshold);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int i = i0 + 8 * (w >> 1), j = j0 + (w & 1);
@@ -793,12 +805,12 @@ cudaError_t bwd(const Params& p, cudaStream_t stream) {
 
 Params make_params(int B, int H, int S, const void* q, const int64_t* qs, const void* k,
                    const int64_t* ks, const void* v, const int64_t* vs, const float* bias,
-                   const int64_t* seed, float scale, int threshold, float keep_prob,
-                   int dropout) {
+                   const int64_t* seed, int n_seeds, float scale, int threshold,
+                   float keep_prob, int dropout) {
   Params p = {};
   p.q = q, p.k = k, p.v = v, p.bias = bias, p.seed = seed;
   for (int i = 0; i < 3; ++i) p.qs[i] = qs[i], p.ks[i] = ks[i], p.vs[i] = vs[i];
-  p.B = B, p.H = H, p.S = S;
+  p.B = B, p.H = H, p.S = S, p.rows_per_seed = B / n_seeds;
   p.scale = scale, p.keep_prob = keep_prob, p.inv_keep = 1.f / keep_prob;
   p.threshold = (uint32_t)threshold;
   p.dropout = dropout;
@@ -808,17 +820,20 @@ Params make_params(int B, int H, int S, const void* q, const int64_t* qs, const 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
-// D: 64 or 128. Each returns cudaGetLastError() after its launches (or the
-// error that refused one); cudaErrorInvalidValue for a dtype or D it lacks.
+// D: 64 or 128; seed: n_seeds int64 elements on the device, n_seeds dividing
+// B. Each returns cudaGetLastError() after its launches (or the error that
+// refused one); cudaErrorInvalidValue for a dtype, D or n_seeds it lacks.
 extern "C" {
 
 int eeg_attn_fwd(int dtype, int D, int B, int H, int S, const void* q, int64_t qsb,
                  int64_t qsh, int64_t qss, const void* k, int64_t ksb, int64_t ksh,
                  int64_t kss, const void* v, int64_t vsb, int64_t vsh, int64_t vss,
-                 const float* bias, const int64_t* seed, float scale, int threshold,
-                 float keep_prob, int dropout, void* out, float* stats, void* stream) {
+                 const float* bias, const int64_t* seed, int n_seeds, float scale,
+                 int threshold, float keep_prob, int dropout, void* out, float* stats,
+                 void* stream) {
   const int64_t qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
-  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, scale, threshold,
+  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
+  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, scale, threshold,
                          keep_prob, dropout);
   p.out = out, p.stats = stats;
   cudaStream_t st = (cudaStream_t)stream;
@@ -832,12 +847,13 @@ int eeg_attn_fwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
 int eeg_attn_bwd(int dtype, int D, int B, int H, int S, const void* q, int64_t qsb,
                  int64_t qsh, int64_t qss, const void* k, int64_t ksb, int64_t ksh,
                  int64_t kss, const void* v, int64_t vsb, int64_t vsh, int64_t vss,
-                 const float* bias, const int64_t* seed, float scale, int threshold,
-                 float keep_prob, int dropout, const void* out, const float* stats,
-                 const void* dout, int64_t dsb, int64_t dsh, int64_t dss, float* delta,
-                 void* dq, void* dk, void* dv, void* stream) {
+                 const float* bias, const int64_t* seed, int n_seeds, float scale,
+                 int threshold, float keep_prob, int dropout, const void* out,
+                 const float* stats, const void* dout, int64_t dsb, int64_t dsh, int64_t dss,
+                 float* delta, void* dq, void* dk, void* dv, void* stream) {
   const int64_t qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
-  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, scale, threshold,
+  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
+  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, scale, threshold,
                          keep_prob, dropout);
   p.o = out, p.stats = (float*)stats, p.dout = dout, p.delta = delta;
   p.ds[0] = dsb, p.ds[1] = dsh, p.ds[2] = dss;
@@ -852,12 +868,13 @@ int eeg_attn_bwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
 
 // The kernels' keep mask for (B, H, S, S), as uint8: a test hook that calls
 // the same keep_bits as the kernels; nothing on the training path calls it.
-int eeg_attn_dropout_mask(int B, int H, int S, const int64_t* seed, int threshold,
-                          uint8_t* out, void* stream) {
+int eeg_attn_dropout_mask(int B, int H, int S, const int64_t* seed, int n_seeds,
+                          int threshold, uint8_t* out, void* stream) {
+  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
   const int64_t n = (int64_t)B * H * S * ((S + 1) / 2);
   const int64_t blocks = (n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535;
   attn_dropout_mask_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      B * H, S, seed, (uint32_t)threshold, out);
+      B, H, S, B / n_seeds, seed, (uint32_t)threshold, out);
   return cudaGetLastError();
 }
 

@@ -16,13 +16,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..ops import attention as fused
-from .layers import dropout, layer_norm, linear
+from .layers import draw_seeds, dropout, layer_norm, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +88,8 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
     JAX package: where ``attention_available(S, D)`` (on the H100 every S
     at BERT's head width, the flagship's truncated S = 80 and the 512-token
     path alike) the fused CUDA kernels run, with a dropout seed drawn per
-    layer from ``gen`` as a one-element device tensor (no host sync);
+    layer from ``gen`` as a one-element device tensor (no host sync), or one
+    per generator of a group, each for its own slice of the batch;
     elsewhere (a head width the kernels are not built for) the plain
     branch. The JAX package's gate sends S = 80 to its einsum branch, which
     multiplies f32 probabilities by V; the kernels, like the JAX kernel, round
@@ -99,8 +99,7 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
     if fused.attention_available(S, D):
         bias = attn_bias[:, 0, 0, :]  # (B, S)
         if gen is not None and attn_drop > 0.0:
-            seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=q.device)
-            return fused.fused_attention(q, k, v, bias, seed, attn_drop)
+            return fused.fused_attention(q, k, v, bias, draw_seeds(gen, q.device), attn_drop)
         seed = torch.zeros(1, dtype=torch.int64, device=q.device)
         return fused.fused_attention(q, k, v, bias, seed, 0.0)
     return attention_unfused(q, k, v, attn_bias, attn_drop, gen)
@@ -137,11 +136,12 @@ def apply(
     input_ids,  # (B, S) int64
     attention_mask,  # (B, S) {0,1}
     config: BertConfig = BertConfig(),
-    gen: Optional[torch.Generator] = None,
+    gen=None,
     token_type_ids=None,
 ):
     """Forward pass; returns ``(sequence_output, pooled_output)``. Dropout
-    draws from ``gen`` and is off when it is None."""
+    draws from ``gen`` (a generator or a group, ``layers.py``) and is off
+    when it is None."""
     S = input_ids.shape[1]
     emb = params["embeddings"]
     x = emb["word"][input_ids] + emb["position"][:S][None, :, :]

@@ -152,11 +152,12 @@ def init(config: FusionConfig, seed: int, device=None, bert_params=None):
     }
 
 
-def encode_features(params, batch, config: FusionConfig,
-                    gen: Optional[torch.Generator], train: bool):
+def encode_features(params, batch, config: FusionConfig, gen, train: bool):
     """Everything upstream of the DP block: both streams, the decoder and
     the raw (B, F) f32 concat (models.py:56-69). Never reads ``DP``.
-    Dropout draws from ``gen`` when ``train``."""
+    Dropout draws from ``gen`` when ``train``: a generator, or a group of G
+    generators for a batch of G stacked batches, each drawing for its own
+    (``models/layers.py``)."""
     check_ported(config)
     drop = gen if train else None
     seq_a, feat_a = bert_mod.apply(

@@ -5,7 +5,10 @@ of tensors with the JAX package's names and layouts: a linear ``kernel`` is
 stored (in, out) and applied as ``x @ kernel + bias``, so the JAX tree loads
 as it is (``models/convert.py``). All layouts are batch-first (B, S, E).
 Randomness (dropout) comes from an explicit ``torch.Generator``; ``None``
-turns it off.
+turns it off. A tuple of G generators (a group) draws for G stacked batches
+along the first axis, each from its own generator, so a forward over the
+stack draws what G forwards over one batch each would (the paired phase
+encode's two phases in one 2B forward).
 
 The reference builds its cross-attention block from ``nn.TransformerDecoder``
 (python/src/custom_models/models.py:44-45): post-LN, ReLU FFN of width 2048,
@@ -22,7 +25,6 @@ functions cast up explicitly.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -94,12 +96,31 @@ def layer_norm(params, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
-def dropout(x, rate: float, gen: Optional[torch.Generator]):
-    """Inverted dropout (torch semantics). Identity when ``gen`` is None."""
+def grouped_rand(shape, gen, device):
+    """``torch.rand(shape)`` from ``gen``; from a group of G generators, G
+    draws of shape[0] / G rows each, one per generator, stacked along the
+    first axis."""
+    if isinstance(gen, torch.Generator):
+        return torch.rand(shape, generator=gen, device=device)
+    rows = shape[0] // len(gen)
+    return torch.cat([torch.rand((rows, *shape[1:]), generator=g, device=device) for g in gen])
+
+
+def draw_seeds(gen, device):
+    """One int31 seed per generator of ``gen``, as an int64 vector on
+    ``device`` (drawn there: no host sync)."""
+    if isinstance(gen, torch.Generator):
+        return torch.randint(0, 2**31 - 1, (1,), generator=gen, device=device)
+    return torch.cat([torch.randint(0, 2**31 - 1, (1,), generator=g, device=device) for g in gen])
+
+
+def dropout(x, rate: float, gen):
+    """Inverted dropout (torch semantics), the mask drawn along x's first
+    (batch) axis by :func:`grouped_rand`. Identity when ``gen`` is None."""
     if gen is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    mask = grouped_rand(x.shape, gen, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -110,7 +131,7 @@ def multi_head_attention(
     num_heads: int,
     key_padding_mask=None,  # (B, Sk) bool: True = ignore this key position
     dropout_rate: float = 0.0,
-    gen: Optional[torch.Generator] = None,
+    gen=None,
 ):
     """torch nn.MultiheadAttention forward (batch-first, need_weights=False);
     masked keys get -inf scores (layers.py:136-138 of the JAX package).
@@ -157,7 +178,7 @@ def decoder_layer_init(gen, d_model: int, device):
 def decoder_layer(
     params, tgt, memory, num_heads: int,
     tgt_key_padding_mask=None, memory_key_padding_mask=None,
-    gen: Optional[torch.Generator] = None, dropout_rate: float = P_DROP,
+    gen=None, dropout_rate: float = P_DROP,
 ):
     """torch nn.TransformerDecoderLayer (norm_first=False, relu)."""
     x = tgt
@@ -186,7 +207,7 @@ def decoder_init(gen, d_model: int, num_layers: int, device):
 def decoder(
     params, tgt, memory, num_heads: int,
     tgt_key_padding_mask=None, memory_key_padding_mask=None,
-    gen: Optional[torch.Generator] = None, dropout_rate: float = P_DROP,
+    gen=None, dropout_rate: float = P_DROP,
 ):
     x = tgt
     for layer_params in params["layers"]:

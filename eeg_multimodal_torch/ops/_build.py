@@ -103,7 +103,10 @@ def library():
             os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
         finally:
             shutil.rmtree(work, ignore_errors=True)
-    log = open(log_path).read() if os.path.exists(log_path) else ""
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
     return ctypes.CDLL(lib), log, seconds
 
 

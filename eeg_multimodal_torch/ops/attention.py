@@ -10,7 +10,11 @@ source notes what bounds them and how they are tiled). They compute
 over (B, H, S, D) with f32 scores, a (B, S) additive key bias (0 or
 finfo(f32).min), and prob dropout kept where ``(bits >> 8) < (1 - p) 2^24``
 and scaled by 1 / (1 - p), the JAX kernel's rule. The backward regenerates
-the mask from the seed instead of storing it.
+the mask from the seed instead of storing it. The seed may be a vector of G
+seeds, G dividing B: batch row b then takes seed b // (B / G) and draws the
+mask its row b mod (B / G) would draw in a call of its own, so one call over
+G stacked batches equals G calls, one per batch and seed (the paired phase
+encode's 2B forward).
 
 Beside them stand their plain PyTorch versions (``attention_plain``,
 ``attention_bwd_plain``, with an explicit keep mask, and
@@ -61,11 +65,21 @@ def keep_threshold(dropout_rate: float) -> int:
     return int((1.0 - dropout_rate) * (1 << 24))
 
 
-def seeded_keep(seed: int, shape, dropout_rate: float):
+def _seeds(seed):
+    """An int, a sequence of ints or a CPU tensor of seeds as a list of
+    ints."""
+    return [int(s) for s in torch.as_tensor(seed).reshape(-1).tolist()]
+
+
+def seeded_keep(seed, shape, dropout_rate: float):
     """The CPU path's keep mask for ``seed``: the same draw in forward and
-    backward, by the kernels' rule on torch's uniform 32-bit draws."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.bitwise_right_shift(random_bits(shape, gen), 8) < keep_threshold(dropout_rate)
+    backward, by the kernels' rule on torch's uniform 32-bit draws. G seeds
+    split the batch axis into G groups, each drawn as a call of its own."""
+    seeds = _seeds(seed)
+    rows = shape[0] // len(seeds)
+    bits = torch.cat([random_bits((rows, *shape[1:]), torch.Generator().manual_seed(s))
+                      for s in seeds])
+    return torch.bitwise_right_shift(bits, 8) < keep_threshold(dropout_rate)
 
 
 def mask_groups(S: int):
@@ -81,17 +95,20 @@ def mask_groups(S: int):
     return i0, j0, 2 * ((i >> 3) & 1) + (j & 1)
 
 
-def keep_mask_plain(seed: int, B: int, H: int, S: int, dropout_rate: float, device="cpu"):
+def keep_mask_plain(seed, B: int, H: int, S: int, dropout_rate: float, device="cpu"):
     """The kernels' exact keep mask for (B, H, S, S), as bool: Philox4x32-10
     keyed by the 64-bit ``seed``, grouped as :func:`mask_groups` says, kept
     where ``(bits >> 8) < (1 - p) 2^24``. A function of (seed, b, h, i, j)
     alone; the forward, both backward kernels and ``attn_dropout_mask`` draw
-    this mask on the card."""
+    this mask on the card. G seeds (a sequence) split the batch into G
+    groups of B / G rows, each group the mask of a call of its own."""
+    seeds = _seeds(seed)
     i0, j0, word = (x.to(device) for x in mask_groups(S))
     rows = i0[:, 0][(torch.arange(S, device=device) & 8) == 0]  # the distinct i0
     cols = torch.arange(0, S, 2, dtype=torch.int64, device=device)
-    bh = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
-    words = philox_words((bh * S + rows[None, :, None]) * S + cols[None, None, :], seed)
+    bh = torch.arange(B // len(seeds) * H, dtype=torch.int64, device=device)[:, None, None]
+    counters = (bh * S + rows[None, :, None]) * S + cols[None, None, :]
+    words = torch.cat([philox_words(counters, s) for s in seeds])
     # element (i, j) reads its group's word: row i0 is rows[pos], column j0 cols[j0 // 2]
     pos = torch.searchsorted(rows, i0[:, 0].contiguous())
     bits = words[:, pos[:, None], (j0[0] // 2)[None, :], word]
@@ -161,8 +178,8 @@ def attention_bwd_plain(q, k, v, bias, keep, dropout_rate: float, dout):
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # dtype, D, B, H, S, then q, k, v each as a pointer and (b, h, s) strides,
-# bias, seed, scale, threshold, keep probability, dropout on
-_COMMON = [_I] * 5 + [_P, _I64, _I64, _I64] * 3 + [_P, _P, _F, _I, _F, _I]
+# bias, seed, number of seeds, scale, threshold, keep probability, dropout on
+_COMMON = [_I] * 5 + [_P, _I64, _I64, _I64] * 3 + [_P, _P, _I, _F, _I, _F, _I]
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,15 +189,18 @@ def _lib():
     lib.eeg_attn_fwd.argtypes = _COMMON + [_P, _P, _P]  # out, stats, stream
     # out, stats, dout + strides, delta, dq, dk, dv, stream
     lib.eeg_attn_bwd.argtypes = _COMMON + [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P]
-    lib.eeg_attn_dropout_mask.argtypes = [_I, _I, _I, _P, _I, _P, _P]
+    lib.eeg_attn_dropout_mask.argtypes = [_I, _I, _I, _P, _I, _I, _P, _P]
     for fn in (lib.eeg_attn_fwd, lib.eeg_attn_bwd, lib.eeg_attn_dropout_mask):
         fn.restype = _I
     return lib
 
 
-def _check_seed(seed, device):
-    if seed.numel() != 1 or seed.dtype != torch.int64 or seed.device != device:
-        raise ValueError(f"seed must be one int64 element on {device}")
+def _check_seed(seed, device, B):
+    """A seed tensor: G int64 elements on ``device``, G dividing ``B``."""
+    if seed.dim() != 1 or seed.dtype != torch.int64 or seed.device != device \
+            or seed.numel() == 0 or B % seed.numel() or not seed.is_contiguous():
+        raise ValueError(f"seed must be a contiguous vector of G int64 elements on {device}, "
+                         f"G dividing B = {B}; got {tuple(seed.shape)} {seed.dtype}")
 
 
 def _aligned(t) -> bool:
@@ -235,7 +255,7 @@ def _check(q, k, v, bias, seed, dropout_rate, dout=None):
     if tuple(bias.shape) != (B, S) or bias.dtype != torch.float32 \
             or not bias.is_contiguous() or bias.device != q.device:
         raise ValueError(f"bias must be contiguous (B, S) = {(B, S)} float32 on {q.device}")
-    _check_seed(seed, q.device)
+    _check_seed(seed, q.device, B)
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate {dropout_rate} outside [0, 1)")
 
@@ -245,14 +265,14 @@ def _common_args(q, k, v, bias, seed, dropout_rate):
     args = [_DTYPES[q.dtype], D, B, H, S]
     for t in (q, k, v):
         args += [t.data_ptr(), *t.stride()[:3]]
-    return args + [bias.data_ptr(), seed.data_ptr(), 1.0 / math.sqrt(D),
+    return args + [bias.data_ptr(), seed.data_ptr(), seed.numel(), 1.0 / math.sqrt(D),
                    keep_threshold(dropout_rate), 1.0 - dropout_rate, int(dropout_rate > 0.0)]
 
 
 def _launch_fwd(q, k, v, bias, seed, dropout_rate: float = 0.0):
     """Launch the forward kernel on CUDA tensors. q, k, v: (B, H, S, D)
-    views that :func:`check_vector_loads` accepts; bias (B, S) f32; seed one
-    int64 element.
+    views that :func:`check_vector_loads` accepts; bias (B, S) f32; seed G
+    int64 elements, G dividing B.
     Returns (out, stats): out a (B, H, S, D) view of a (B, S, H, D) buffer;
     stats (2, B, H, S) f32, each row's softmax max m and sum l, for the
     backward."""
@@ -296,14 +316,16 @@ KERNELS = (attn_fwd, attn_bwd)
 
 def attn_dropout_mask(seed, B: int, H: int, S: int, dropout_rate: float):
     """The kernels' keep mask for (B, H, S, S) as uint8, drawn by the same
-    device function: a test hook that hands the plain version the kernels'
-    exact mask. Nothing on the training path calls it."""
+    device function, for a seed vector of G elements (G dividing B): a test
+    hook that hands the plain version the kernels' exact mask. Nothing on
+    the training path calls it."""
     if not seed.is_cuda:
         raise ValueError("the mask kernel takes a CUDA seed")
-    _check_seed(seed, seed.device)
+    _check_seed(seed, seed.device, B)
     out = torch.empty((B, H, S, S), dtype=torch.uint8, device=seed.device)
-    err = _lib().eeg_attn_dropout_mask(B, H, S, seed.data_ptr(), keep_threshold(dropout_rate),
-                                       out.data_ptr(), _build.current_stream(seed.device))
+    err = _lib().eeg_attn_dropout_mask(B, H, S, seed.data_ptr(), seed.numel(),
+                                       keep_threshold(dropout_rate), out.data_ptr(),
+                                       _build.current_stream(seed.device))
     _build.raise_on_error(err, "attn_dropout_mask")
     return out
 
@@ -324,7 +346,7 @@ class _FusedAttention(torch.autograd.Function):
             return out
         drawn = keep
         if dropout_rate > 0.0 and keep is None:
-            drawn = seeded_keep(int(seed.reshape(-1)[0]), _mask_shape(q), dropout_rate)
+            drawn = seeded_keep(seed, _mask_shape(q), dropout_rate)
         # the seed, not the mask: the backward regenerates it
         ctx.save_for_backward(q, k, v, bias, seed, *(() if keep is None else (keep,)))
         return attention_plain(q, k, v, bias, drawn, dropout_rate)
@@ -339,7 +361,7 @@ class _FusedAttention(torch.autograd.Function):
             q, k, v, bias, seed, *given = ctx.saved_tensors
             keep = given[0] if given else None
             if rate > 0.0 and keep is None:
-                keep = seeded_keep(int(seed.reshape(-1)[0]), _mask_shape(q), rate)
+                keep = seeded_keep(seed, _mask_shape(q), rate)
             dq, dk, dv = attention_bwd_plain(q, k, v, bias, keep, rate, dout)
         return dq, dk, dv, None, None, None, None
 
@@ -351,8 +373,10 @@ def fused_attention(q, k, v, bias, seed, dropout_rate: float = 0.0, keep=None):
     q, k, v : (B, H, S, D) f32 or bf16, with a unit last stride and, on
     the card, a data pointer and (b, h, s) strides that are multiples of 16
     bytes (the packed QKV views go in without copies); bias : (B, S) or the JAX
-    package's (B, 1, S) f32 additive key bias; seed : one int64 element on
-    the same device, read in the kernel; dropout_rate in [0, 1). Returns
+    package's (B, 1, S) f32 additive key bias; seed : a vector of G int64
+    elements on the same device, G dividing B, read in the kernel (batch
+    row b takes seed b // (B / G), as in a call of its own over its group);
+    dropout_rate in [0, 1). Returns
     (B, H, S, D), a view of a (B, S, H, D) buffer on the card. ``keep``
     (CPU only) replaces the seed's draw with a given boolean (B, H, S, S)
     mask, so that tests can hand the port the JAX reference's mask. No

@@ -10,9 +10,10 @@ on-disk layout,
   models/custom/<train_type>/<path_suffix>best_f1.pickle
   logs/<train_type>/<path_suffix>{whole,best}_record.txt
 
-with the port's trainer underneath, on the card unless ``device="cpu"``.
-What the port does not run yet (DPSGD and the other model classes,
-``predict``) raises ``NotImplementedError`` naming its ROADMAP item.
+with the port's trainer underneath, on the card unless ``device="cpu"``,
+and ``predict``, which evaluates a trained checkpoint. What the port does
+not run yet (DPSGD and the other model classes) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,13 +21,17 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 from ..data import datasets as D
 from ..data.compact_vocab import build_compact_vocab, remap_pairing
 from ..models import fusion
 from ..models.bert import BertConfig
 from ..utils.device import resolve_device
-from ..utils.seeding import DEFAULT_SEED
-from .trainer import TrainConfig, Trainer
+from ..utils.seeding import DEFAULT_SEED, generator
+from . import metrics as M
+from .checkpoint import load_torch_checkpoint
+from .trainer import StepFunctions, TrainConfig, Trainer
 
 
 def standardize_coef(coef: str) -> str:
@@ -176,7 +181,76 @@ class TrainAndTest:
         return self.trainer.fit(train_data, test_data, epsilon, log_path=log_path,
                                 model_path=model_path, echo=self.echo)
 
-    def predict(self, *args, **kwargs):
-        """Evaluate a trained checkpoint (api.py:231 of the JAX package): not
-        ported yet."""
-        raise NotImplementedError("predict is not ported yet (ROADMAP.md, Next, item 3)")
+    # -- inference on a trained checkpoint (api.py:230-327 there) -------------
+    def predict(
+        self,
+        checkpoint: str,
+        multimodal_type: str = "ti",
+        dp_mode: str = "lapacian_dropout",
+        eeg_model: str = "bert",
+        eeg_model_coef: str = "bert-base-uncased",
+        act_model: str = "clip",
+        act_model_coef: str = "ViT-B/32",
+        cross_atn_type: str = "double_stream",
+        epsilon: float = 0.1,
+        split: str = "test",
+        n_eval: int = 1,
+        seed: int = DEFAULT_SEED,
+        out_csv: Optional[str] = None,
+        bert_config=None,
+        device=None,
+    ):
+        """Evaluate a trained best_f1 checkpoint on a split (the reference's
+        checkpoint evaluations, train_val.py:508-515 and test_0425.py): load
+        the state dict, run the stochastic eval epoch (hard=True, batches in
+        order, each under ``n_eval`` noise draws, majority-voted), and write
+        per-row predictions to ``out_csv`` if given. Returns {"loss",
+        "accuracy", "f1", "predictions", "labels", "scores"}. ``device``
+        overrides the instance's.
+
+        A token id past the checkpoint's word table raises ``ValueError``,
+        checked on the host's arrays before any id reaches the device: the
+        JAX package guards against XLA's silent clamping, and on the card an
+        out-of-range gather is a device-side assert, which leaves the CUDA
+        context unusable instead of raising.
+        """
+        data = D.truncate_tokens(self._load_split(split, multimodal_type, eeg_model,
+                                                  eeg_model_coef, act_model, act_model_coef))
+        fc = fusion.config_for(multimodal_type, dp_mode, cross_atn_type,
+                               bert_coef=eeg_model_coef, dtype="float32")
+        if bert_config is not None:
+            fc = dataclasses.replace(fc, bert_config=bert_config)
+        fusion.check_ported(fc)
+        dev = self.device if device is None else resolve_device(device)
+        params = load_torch_checkpoint(checkpoint, fc, dev)
+        rows = params["bert"]["embeddings"]["word"].shape[0]
+        for stream, is_txt in ((data.eeg_input, multimodal_type[0] == "t"),
+                               (data.act_input, multimodal_type[1] == "t")):
+            if is_txt and int(np.max(stream)) >= rows:
+                raise ValueError(
+                    f"token id {int(np.max(stream))} out of range for the checkpoint's "
+                    f"{rows}-row embedding table: the checkpoint was trained on a "
+                    "different (compact?) vocabulary than this data tree")
+        tc = TrainConfig(batch_size=self.batch_size, compute_dtype=self.compute_dtype,
+                         n_eval=n_eval)
+        idx, w = D.epoch_indices(len(data), self.batch_size, False, device=dev)
+        loss, _, preds, labels, scores, ws = StepFunctions(fc, tc, dev).eval_epoch(
+            params, data.to_device(dev), idx, w, epsilon, generator(seed, dev))
+        sel = ws.cpu().numpy() > 0
+        preds_np, labels_np = preds.cpu().numpy()[sel], labels.cpu().numpy()[sel]
+        out = {
+            "loss": float(loss),
+            "accuracy": float((preds_np == labels_np).mean()),
+            "f1": float(M.f1_binary(preds_np, labels_np)),
+            "predictions": preds_np,
+            "labels": labels_np,
+            "scores": scores.float().cpu().numpy()[sel],
+        }
+        if out_csv:
+            os.makedirs(os.path.dirname(out_csv) or ".", exist_ok=True)
+            with open(out_csv, "w") as f:
+                f.write("index,prediction,label,score\n")
+                for i, (p, l, s) in enumerate(zip(out["predictions"], out["labels"],
+                                                  out["scores"])):
+                    f.write(f"{i},{int(p)},{int(l)},{float(s):.6f}\n")
+        return out

@@ -1,19 +1,37 @@
-"""The alternating two-optimizer DP-MLD trainer (the faithful f32 step).
+"""The alternating two-optimizer DP-MLD trainer.
 
-Port of the JAX package's ``train/trainer.py`` main path (reference
-semantics: base_train.py:167-255). Per batch:
+Port of the JAX package's ``train/trainer.py`` (reference semantics:
+base_train.py:167-255). Per batch, the faithful step:
 
 1. forward with hard=False, the gradient w.r.t. ``DP`` only, Adam on ``DP``;
 2. forward with hard=True, the gradient w.r.t. every other parameter, Adam.
 
-Then a stochastic eval epoch (hard=True, dropout off, DP noise on) and F1.
-PyTorch runs eagerly: an epoch is a Python loop over the batches. Phase 1
-marks only ``DP`` as requiring grad, so the encoders record no graph and
-their backward never runs (the JAX trainer gets the same from XLA's dead-code
-elimination). The two phases draw their own dropout and DP noise, one after
-the other, from the epoch's generator, as ``k1``/``k2`` do in the JAX step.
-``Trainer.fit`` runs the epochs with the legacy records and the best-F1
-checkpoint (trainer.py:655-777 there).
+Then a stochastic eval epoch (hard=True, dropout off, DP noise on, each
+batch under ``n_eval`` noise draws) and F1. PyTorch runs eagerly: an epoch is
+a Python loop over the batches. Phase 1 marks only ``DP`` as requiring grad,
+so the encoders record no graph and their backward never runs (the JAX
+trainer gets the same from XLA's dead-code elimination). The two phases draw
+their own dropout and DP noise, one after the other, from the epoch's
+generator, as ``k1``/``k2`` do in the JAX step. ``Trainer.fit`` runs the
+epochs with the legacy records and the best-F1 checkpoint (trainer.py:655-777
+there); ``StepFunctions.cycle`` runs K of them with no host sync.
+
+The fast modes of the JAX package (trainer.py:229-465 there) rewrite the
+step:
+
+- ``share_phase_dropout``: phase 2 replays phase 1's draws (every dropout
+  mask, attention seed and DP noise), the generator's state saved before
+  phase 1 and restored before phase 2;
+- ``reuse_phase_features`` (by default on with sharing): the encoder runs
+  once; phase 1 takes ``dDP`` through the head on the features held
+  constant, phase 2 the head again (its DP noise replayed) and one backward
+  into head and encoder. Equal to sharing without reuse;
+- ``paired_phase_encode``: both phases' encoder forwards as one forward
+  over the batch stacked twice, each half drawing from its own phase's
+  generator (a group, ``models/layers.py``); phase 2's gradient goes back
+  through the 2B forward with a zero cotangent on phase 1's half. Equal to
+  the sequential step that draws phase 1 from one generator and phase 2
+  from the other.
 
 With ``compute_dtype="bfloat16"`` the forward runs on a bf16 copy of the f32
 master tree, ``DP`` included, cast inside the step; the gradient goes back
@@ -24,7 +42,8 @@ PyTorch keeps no excess precision at the cast, so the two give the same
 numbers: the gradient reaching the cast is bf16 either way. The carried copy
 does less work: on an H100 at S = 80 and batch 8 (``chip_smoke.py``'s
 profile) its step launches 2816 kernels against the in-step cast's 3331 and
-takes 16.8 ms of device time against 17.8.
+takes 16.8 ms of device time against 17.8. The fast modes cast the model
+params once a step, inside it.
 """
 from __future__ import annotations
 
@@ -41,7 +60,7 @@ from ..data.datasets import MultiModalArrays, epoch_indices, gather_batch
 from ..models import fusion
 from ..ops.optim import Adam
 from ..utils.device import resolve_device
-from ..utils.seeding import DEFAULT_SEED, derive_seed, generator
+from ..utils.seeding import DEFAULT_SEED, child_generator, derive_seed, generator
 from ..utils.trees import tree_cast, tree_items, tree_map, tree_map_with_path
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -54,9 +73,7 @@ _DTYPES = ("float32", "bfloat16")
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's ``TrainConfig`` (trainer.py:43-140 there), every
-    field with its name and default. The fields this port does not run yet
-    refuse any value but the faithful one, naming the ROADMAP item that
-    ports them; none is ignored."""
+    field with its name and default."""
 
     batch_size: int = 8  # ref: base_train.py:49
     learning_rate: float = 1e-6  # ref: base_train.py:50
@@ -65,8 +82,14 @@ class TrainConfig:
     f1_best_init: float = 0.5  # ref: base_train.py:164
     # "bfloat16": the forward on a bf16 copy of the f32 master params
     compute_dtype: str = "float32"
+    # shuffle the eval batches, from the epoch's own eval-order generator
+    # (the reference shuffles them; no metric depends on the order)
     shuffle_eval: bool = False
+    # stochastic eval repeats per batch: majority-voted predictions, mean
+    # loss, accuracy and score (the legacy trainer's scheme, train.py:126-138)
     n_eval: int = 1
+    # the fast modes (module docstring); reuse_phase_features None means
+    # "as share_phase_dropout" (trainer.py:237-239 there)
     share_phase_dropout: bool = False
     reuse_phase_features: Optional[bool] = None
     # the Adam moments' storage dtypes; a bf16 nu is stored with stochastic
@@ -99,6 +122,12 @@ class TrainConfig:
         for name in ("compute_dtype", "adam_mu_dtype", "adam_nu_dtype"):
             if getattr(self, name) not in _DTYPES:
                 raise ValueError(f"{name}={getattr(self, name)!r}: the port runs {_DTYPES}")
+        if self.n_eval < 1:
+            raise ValueError(f"n_eval={self.n_eval}: at least one eval pass")
+        if self.reuse_phase_features and not self.share_phase_dropout:
+            raise ValueError(  # trainer.py:240-244 there
+                "reuse_phase_features requires share_phase_dropout: with "
+                "fresh per-phase dropout the two phases' features differ")
         fast = [f for f in ("share_phase_dropout", "reuse_phase_features",
                             "paired_phase_encode") if getattr(self, f)]
         if self.precast_params and self.compute_dtype != "float32" and fast:
@@ -106,15 +135,13 @@ class TrainConfig:
                 "precast_params covers the faithful alternating and "
                 "single-optimizer steps; the paired/shared fast modes keep "
                 "the in-step cast")
-        waits = [
-            (bool(fast), f"the fast modes {fast}", 2),
-            (self.n_eval != 1, f"n_eval={self.n_eval}", 3),
-            (self.shuffle_eval, "shuffle_eval", 3),
-        ]
-        for bad, what, item in waits:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md, Next, item {item})")
+
+    @property
+    def reuses_features(self) -> bool:
+        """``reuse_phase_features``, None meaning ``share_phase_dropout``."""
+        if self.reuse_phase_features is None:
+            return self.share_phase_dropout
+        return self.reuse_phase_features
 
 
 def _is_model(path: str) -> bool:
@@ -147,6 +174,9 @@ class StepFunctions:
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, train_cfg.compute_dtype)
         self.precast = train_cfg.precast_params and self.compute_dtype != torch.float32
+        # the step's mode, in the JAX package's order of precedence
+        self.reuse = train_cfg.reuses_features
+        self.paired = train_cfg.paired_phase_encode and not self.reuse
         self.dp_opt = Adam(train_cfg.learning_rate)  # the (1, F) DP leaf: f32 moments
         self.model_opt = Adam(train_cfg.learning_rate,
                               mu_dtype=getattr(torch, train_cfg.adam_mu_dtype),
@@ -178,21 +208,44 @@ class StepFunctions:
         loss, acc, pred, _ = M.cal_loss(logits, batch["labels"], weight)
         return loss, acc, pred, logits
 
+    def phase_generators(self, gen):
+        """(phase 1's generator, phase 2's) for a step given ``gen``: a pair
+        as given; else ``gen`` for both, one phase after the other, or, in
+        the paired mode, ``gen`` and a child of its state (one generator for
+        each half of the 2B forward)."""
+        if not isinstance(gen, torch.Generator):
+            return tuple(gen)
+        if self.paired:
+            return gen, child_generator(gen, "phase 2")
+        return gen, gen
+
     def train_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
                    dp_noise=(None, None), dropout=True, params_c=None):
-        """One faithful alternating step; updates ``params`` in place and
-        returns (dp_os, model_os, loss, acc) with phase 2's loss and accuracy.
+        """One alternating step in the configured mode; updates ``params`` in
+        place and returns (dp_os, model_os, loss, acc) with phase 2's loss
+        and accuracy.
 
-        ``params_c``: the :meth:`precast_copy` of ``params`` (with
-        ``precast_params``), which the forwards read and which is refreshed
-        in place after the update (trainer.py:254-291 there); without it
-        each phase casts the masters (a no-op at f32).
+        ``gen``: the step's generator, or a pair, phase 1's and phase 2's
+        (:meth:`phase_generators`); with ``share_phase_dropout`` phase 2
+        replays phase 1's draws, and the reuse step draws from phase 1's
+        generator alone. ``params_c``: the :meth:`precast_copy` of ``params``
+        (with ``precast_params``), which the forwards read and which is
+        refreshed in place after the update (trainer.py:254-291 there);
+        without it each phase casts the masters (a no-op at f32).
 
         Test-only keywords: ``dp_noise`` hands each phase its Laplace(0, 1)
         DP noise, and ``dropout=False`` turns dropout off, so that the step
         can be held against the JAX reference's.
         """
+        g1, g2 = self.phase_generators(gen)
+        if self.reuse:
+            return self._shared_feature_step(params, dp_os, model_os, batch, weight, epsilon,
+                                             g1, dp_noise, dropout)
+        if self.paired:
+            return self._paired_phase_step(params, dp_os, model_os, batch, weight, epsilon,
+                                           g1, g2, dp_noise, dropout)
         cd = self.compute_dtype
+        replay = g1.get_state() if self.train_cfg.share_phase_dropout else None
 
         def with_dp(dp):  # the precast copy with the given DP leaf, in params' order
             return {k: (dp if k == "DP" else params_c[k]) for k in params}
@@ -205,12 +258,14 @@ class StepFunctions:
             dp_leaves = [params["DP"]]
             dp_alias = params["DP"].detach().requires_grad_()
             p1 = with_dp(dp_alias.to(cd))
-        loss1 = self.loss_fn(p1, batch, weight, epsilon, gen, hard=False,
+        loss1 = self.loss_fn(p1, batch, weight, epsilon, g1, hard=False,
                              train=dropout, dp_noise=dp_noise[0])[0]
         g_dp = torch.autograd.grad(loss1, [dp_alias])
         dp_os = self.dp_opt.update(dp_leaves, list(g_dp), dp_os)
 
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
+        if replay is not None:
+            g2.set_state(replay)
         if params_c is None:
             p2, aliases, model_leaves = _track(params, _is_model)
             p2 = self.compute(p2)
@@ -218,7 +273,7 @@ class StepFunctions:
             # gradients w.r.t. the bf16 copy, cast up for the f32 update
             p2, aliases, copies = _track(with_dp(params["DP"].detach().to(cd)), _is_model)
             model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
-        loss, acc, _, _ = self.loss_fn(p2, batch, weight, epsilon, gen, hard=True,
+        loss, acc, _, _ = self.loss_fn(p2, batch, weight, epsilon, g2, hard=True,
                                        train=dropout, dp_noise=dp_noise[1])
         grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
         model_os = self.model_opt.update(model_leaves, grads, model_os)
@@ -226,11 +281,72 @@ class StepFunctions:
             torch._foreach_copy_(copies, model_leaves)
         return dp_os, model_os, loss.detach(), acc.detach()
 
-    def cycle(self, *args, **kwargs):
-        """K train+eval epochs as one device program (trainer.py:550 of the
-        JAX package): not ported yet."""
-        raise NotImplementedError("cycle is not ported yet (ROADMAP.md, Next, item 3)")
+    # -- the fast modes' two phases over features encoded once -----------------
+    def _model_tree(self, params):
+        """The model params (``DP`` left out) as aliases that require grad,
+        cast to the compute dtype once: (tree, aliases, masters in order)."""
+        tracked, aliases, masters = _track({k: v for k, v in params.items() if k != "DP"},
+                                           lambda path: True)
+        return self.compute(tracked), aliases, masters
 
+    def _head_loss(self, pc, dp, feature, batch, weight, epsilon, hard, gen, noise):
+        """(loss, acc) of the head over ``feature`` with the DP leaf ``dp``
+        (cast to the compute dtype, as the whole tree is in the faithful
+        step)."""
+        params = {**pc, "DP": dp.to(self.compute_dtype)}
+        logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen, noise)
+        return M.cal_loss(logits, batch["labels"], weight)[:2]
+
+    def _two_phases(self, params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
+                    weight, epsilon, g1, g2, dp_noise, replay=None):
+        """Phase 1 (``dDP`` on ``f1`` held constant, Adam on ``DP``), then
+        phase 2 (the head on ``f2`` with the updated ``DP``, one backward
+        into head and encoder, Adam); ``replay``, a state of ``g2`` to set
+        before phase 2."""
+        dp_alias = params["DP"].detach().requires_grad_()
+        loss1 = self._head_loss(pc, dp_alias, f1.detach(), batch, weight, epsilon, False, g1,
+                                dp_noise[0])[0]
+        dp_os = self.dp_opt.update([params["DP"]], list(torch.autograd.grad(loss1, [dp_alias])),
+                                   dp_os)
+        if replay is not None:
+            g2.set_state(replay)
+        loss, acc = self._head_loss(pc, params["DP"].detach(), f2, batch, weight, epsilon, True,
+                                    g2, dp_noise[1])
+        grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
+        model_os = self.model_opt.update(masters, grads, model_os)
+        return dp_os, model_os, loss.detach(), acc.detach()
+
+    def _shared_feature_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
+                             dp_noise, dropout):
+        """Both phases over one encoder forward (trainer.py:414-465 there):
+        the features never read ``DP``, and under shared dropout both phases
+        draw the same ones, so phase 2's encoder gradient is the backward of
+        the one forward. The generator's state after the encoder is restored
+        before phase 2, so its head draws phase 1's DP noise again."""
+        pc, aliases, masters = self._model_tree(params)
+        feature = fusion.encode_features(pc, batch, self.fusion_cfg, gen, dropout)
+        return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feature,
+                                feature, batch, weight, epsilon, gen, gen, dp_noise,
+                                replay=gen.get_state())
+
+    def _paired_phase_step(self, params, dp_os, model_os, batch, weight, epsilon, g1, g2,
+                           dp_noise, dropout):
+        """Both phases' encoder forwards as one forward over the batch
+        stacked twice (trainer.py:350-412 there), the halves drawing from
+        (g1, g2) as two sequential forwards would: the encoder never reads
+        ``DP``, and phase 1 updates only ``DP``. Phase 1 takes ``dDP`` on
+        half 0, phase 2 backs up through half 1 (a zero cotangent on half 0,
+        the slice's gradient)."""
+        if self.train_cfg.share_phase_dropout:
+            g2.set_state(g1.get_state())
+        pc, aliases, masters = self._model_tree(params)
+        B = weight.shape[0]
+        pair = {k: torch.cat([v, v]) for k, v in batch.items() if k != "labels"}
+        feats = fusion.encode_features(pc, pair, self.fusion_cfg, (g1, g2), dropout)
+        return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feats[:B],
+                                feats[B:], batch, weight, epsilon, g1, g2, dp_noise)
+
+    # -- epochs -----------------------------------------------------------------
     def train_epoch(self, params, dp_os, model_os, data, idx, weight, epsilon, gen):
         """Every batch of ``idx`` once; returns (dp_os, model_os, mean loss,
         mean accuracy), the means of batch means (base_train.py:239-242)
@@ -247,38 +363,84 @@ class StepFunctions:
 
     @torch.no_grad()
     def eval_epoch(self, params, data, idx, weight, epsilon, gen, dp_noise=None):
-        """Stochastic eval, one pass (n_eval = 1): hard=True, dropout off, DP
-        noise on, the params cast to the compute dtype once. Returns (loss,
-        acc, preds, labels, scores, weights), the loss and accuracy as means
-        of batch means, the per-row tensors flattened over the batches,
-        scores = logits[:, 1]. With ``eval_vmap_batches`` all the batches
-        go through one forward (trainer.py:495-501 there), else one forward
-        each. ``dp_noise`` (tests only) gives each batch's noise."""
+        """Stochastic eval: hard=True, dropout off, DP noise on, the params
+        cast to the compute dtype once, each batch under ``n_eval`` noise
+        draws (trainer.py:468-513 there). Returns (loss, acc, preds, labels,
+        scores, weights): loss and accuracy the means over repeats of the
+        batch means, then over batches; per row the majority vote of the
+        repeats' predictions (a tie votes 0) and the mean of their scores,
+        logits[:, 1]; the per-row tensors flattened over the batches. With
+        ``eval_vmap_batches`` every repeat of every batch goes through one
+        forward of n_eval x n_batches x B rows (trainer.py:495-501 there),
+        else each batch through one of n_eval x B rows. ``dp_noise`` (tests
+        only) gives each batch its (B, F) noise, or its n_eval of them."""
         params = self.compute(params)
+        n_eval = self.train_cfg.n_eval
         n_batches, B = idx.shape
+        noise = None
+        if dp_noise is not None:  # (n_eval, n_batches, B, F)
+            noise = torch.stack([torch.stack(list(n)).reshape(n_eval, B, -1) for n in dp_noise],
+                                dim=1)
         if self.train_cfg.eval_vmap_batches:
-            batch = gather_batch(data, idx.reshape(-1))
-            noise = None if dp_noise is None else torch.cat(list(dp_noise))
-            logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, True, gen,
-                                  False, noise)
-            # per-batch means over the (n_batches, B) stack, with each batch's weights
-            losses, accs, _, _ = M.cal_loss(logits.reshape(n_batches, B, -1),
-                                            batch["labels"].reshape(n_batches, B), weight)
-            return (losses.mean(), accs.mean(), logits.argmax(dim=-1), batch["labels"],
-                    logits[:, 1], weight.reshape(-1))
-        losses, accs, preds, labels, scores = [], [], [], [], []
-        for i, (b_idx, w) in enumerate(zip(idx, weight)):
-            batch = gather_batch(data, b_idx)
-            loss, acc, pred, logits = self.loss_fn(
-                params, batch, w, epsilon, gen, hard=True, train=False,
-                dp_noise=None if dp_noise is None else dp_noise[i])
-            losses.append(loss)
-            accs.append(acc)
-            preds.append(pred)
-            labels.append(batch["labels"])
-            scores.append(logits[:, 1])
-        return (torch.stack(losses).mean(), torch.stack(accs).mean(), torch.cat(preds),
-                torch.cat(labels), torch.cat(scores), weight.reshape(-1))
+            parts = [slice(None)]
+        else:
+            parts = [slice(i, i + 1) for i in range(n_batches)]
+        outs = [self._eval_batches(params, data, idx[c], weight[c], epsilon, gen,
+                                   None if noise is None else noise[:, c]) for c in parts]
+        losses, accs, preds, labels, scores = (
+            outs[0] if len(outs) == 1 else (torch.cat(t) for t in zip(*outs)))
+        return (losses.mean(), accs.mean(), preds.reshape(-1), labels.reshape(-1),
+                scores.reshape(-1), weight.reshape(-1))
+
+    def _eval_batches(self, params, data, idx, weight, epsilon, gen, noise):
+        """One forward over n_eval repeats of the (n, B) batches ``idx``:
+        per-batch (loss, acc) means over the repeats, and per row the vote,
+        the label and the mean score, each with a leading n."""
+        n_eval = self.train_cfg.n_eval
+        n, B = idx.shape
+        rows = idx.reshape(-1)
+        batch = gather_batch(data, rows if n_eval == 1 else rows.repeat(n_eval))
+        logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, True, gen, False,
+                              None if noise is None else noise.reshape(n_eval * n * B, -1))
+        logits = logits.reshape(n_eval, n, B, -1)
+        labels = batch["labels"][:n * B].reshape(n, B)
+        # per-batch means over each (repeat, batch), with the batch's weights
+        losses, accs, pred, _ = M.cal_loss(logits, labels.expand(n_eval, n, B), weight)
+        vote = (pred.to(torch.float32).mean(0) > 0.5).to(pred.dtype)
+        return losses.mean(0), accs.mean(0), vote, labels, logits[..., 1].mean(0)
+
+    def epoch(self, params, dp_os, model_os, train_data, test_data, idx, weight, train_gen,
+              eidx, eweight, eval_gen, epsilon):
+        """A train epoch, an eval epoch and F1, all on the device: returns
+        (dp_os, model_os, row), the row a (5,) tensor (train loss, train
+        accuracy, test loss, test accuracy, F1)."""
+        dp_os, model_os, tr_loss, tr_acc = self.train_epoch(
+            params, dp_os, model_os, train_data, idx, weight, epsilon, train_gen)
+        te_loss, te_acc, preds, labels, _, ws = self.eval_epoch(
+            params, test_data, eidx, eweight, epsilon, eval_gen)
+        return dp_os, model_os, torch.stack([tr_loss, tr_acc, te_loss, te_acc,
+                                             M.f1(labels, preds, ws)])
+
+    def cycle(self, params, dp_os, model_os, train_data, test_data, idx_all, w_all,
+              train_gens, eidx, ew, eval_gens, epsilon):
+        """K train+eval epochs with F1 on the device and no host sync
+        (trainer.py:516-561 there); updates ``params`` in place and returns
+        (dp_os, model_os, rows), the rows one (K, 5) device tensor of
+        (train loss, train accuracy, test loss, test accuracy, F1).
+
+        Every input is ready on the device: ``idx_all`` / ``w_all`` (K,
+        n_batches, B), the eval ``eidx`` / ``ew`` (n_batches, B), or (K,
+        n_batches, B) for an order per epoch, and K train and K eval
+        generators. ``Trainer.cycle_inputs`` builds them as K
+        ``Trainer.run_epoch`` calls draw theirs, and the rows are then those
+        calls' rows."""
+        rows = []
+        for k, (tg, eg) in enumerate(zip(train_gens, eval_gens)):
+            ek, ewk = (eidx[k], ew[k]) if eidx.dim() == 3 else (eidx, ew)
+            dp_os, model_os, row = self.epoch(params, dp_os, model_os, train_data, test_data,
+                                              idx_all[k], w_all[k], tg, ek, ewk, eg, epsilon)
+            rows.append(row)
+        return dp_os, model_os, torch.stack(rows)
 
 
 class Trainer:
@@ -315,30 +477,43 @@ class Trainer:
                "word": torch.from_numpy(self.vocab.expand_embeddings(word))}
         return {**params, "bert": {**params["bert"], "embeddings": emb}}
 
-    def run_epoch(self, epoch: int, train_dev, test_dev, n_train: int,
-                  n_test: int, epsilon: float) -> Dict[str, Any]:
-        """One train+eval epoch. Updates the trainer's parameters and
-        optimizer states; returns the epoch's metric row."""
+    def epoch_inputs(self, epoch: int, n_train: int, n_test: int):
+        """The inputs of epoch ``epoch``, on the device: the shuffled train
+        index matrix and weights, the train generator, the eval index matrix
+        (in order, or shuffled with ``shuffle_eval``) and weights, the eval
+        generator. Each is drawn from its own generator, seeded from (seed,
+        epoch, name): the eval order from a CPU generator of its own, so
+        that ``shuffle_eval`` moves no other draw."""
         cfg = self.train_cfg
-        t0 = time.time()
 
         def gen(name, device="cpu"):
             return generator(derive_seed(cfg.seed, "epoch", epoch, name), device)
 
         idx, w = epoch_indices(n_train, cfg.batch_size, True, gen("shuffle"), self.device)
-        self.dp_os, self.model_os, tr_loss, tr_acc = self.steps.train_epoch(
-            self.params, self.dp_os, self.model_os, train_dev, idx, w, epsilon,
-            gen("train", self.device))
+        eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,
+                                 gen("eval_shuffle") if cfg.shuffle_eval else None, self.device)
+        return idx, w, gen("train", self.device), eidx, ew, gen("eval", self.device)
 
-        # eval batches stay in order (the reference shuffles them; no metric
-        # depends on the order)
-        eidx, ew = epoch_indices(n_test, cfg.batch_size, False, device=self.device)
-        te_loss, te_acc, preds, labels, _, ws = self.steps.eval_epoch(
-            self.params, test_dev, eidx, ew, epsilon, gen("eval", self.device))
-        f1 = M.f1(labels, preds, ws)
+    def cycle_inputs(self, epochs, n_train: int, n_test: int):
+        """The inputs of ``StepFunctions.cycle`` for ``epochs``, each drawn
+        as :meth:`epoch_inputs` draws it: (idx_all, w_all, train_gens,
+        eidx, ew, eval_gens), the index matrices stacked on a leading K."""
+        idx, w, tgens, eidx, ew, egens = zip(*(self.epoch_inputs(e, n_train, n_test)
+                                                for e in epochs))
+        return (torch.stack(idx), torch.stack(w), list(tgens), torch.stack(eidx),
+                torch.stack(ew), list(egens))
+
+    def run_epoch(self, epoch: int, train_dev, test_dev, n_train: int,
+                  n_test: int, epsilon: float) -> Dict[str, Any]:
+        """One train+eval epoch. Updates the trainer's parameters and
+        optimizer states; returns the epoch's metric row."""
+        t0 = time.time()
+        idx, w, train_gen, eidx, ew, eval_gen = self.epoch_inputs(epoch, n_train, n_test)
+        self.dp_os, self.model_os, row = self.steps.epoch(
+            self.params, self.dp_os, self.model_os, train_dev, test_dev, idx, w, train_gen,
+            eidx, ew, eval_gen, epsilon)
         # one host sync for the whole row
-        tr_loss, tr_acc, te_loss, te_acc, f1 = torch.stack(
-            [tr_loss, tr_acc, te_loss, te_acc, f1]).tolist()
+        tr_loss, tr_acc, te_loss, te_acc, f1 = row.tolist()
         return dict(
             epoch=epoch + 1, train_loss=tr_loss, train_acc=tr_acc,
             test_loss=te_loss, test_acc=te_acc, f1=f1, time_cost=time.time() - t0,

@@ -8,6 +8,8 @@ adding randomness to one never perturbs another.
 """
 from __future__ import annotations
 
+import hashlib
+
 import torch
 
 DEFAULT_SEED = 980616  # ref: base_train.py:43
@@ -34,3 +36,12 @@ def generator(seed: int, device="cpu") -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return g
+
+
+def child_generator(gen: torch.Generator, *names) -> torch.Generator:
+    """A generator on ``gen``'s device, seeded from ``gen``'s current state
+    and a path of names; ``gen`` does not move. The state is read on the
+    host (a CUDA generator's is its (seed, offset) pair), so this costs no
+    device sync."""
+    digest = hashlib.blake2b(gen.get_state().numpy().tobytes(), digest_size=8).digest()
+    return generator(derive_seed(int.from_bytes(digest, "little"), *names), gen.device)

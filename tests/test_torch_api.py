@@ -189,22 +189,21 @@ def test_fit_writes_the_best_at_the_improving_epoch_unless_deferred(tmp_path, de
 
 
 def test_what_waits_is_refused(tmp_path):
-    """DPSGD, ``predict``, ``n_eval``, ``shuffle_eval`` and the shared/paired
-    fast modes still wait, each naming its ROADMAP item; ``precast_params``
-    with a fast mode is refused as the JAX package refuses it."""
+    """DPSGD still waits, naming its ROADMAP item; ``precast_params`` with a
+    fast mode is refused as the JAX package refuses it. Every other
+    ``TrainConfig`` field of the JAX package is accepted."""
     train, test = rows(4, seed=6), rows(4, seed=7)
     args = (train, test, "DPMLD", "x/", "ti")
     api = TrainAndTest(device="cpu", artifacts_root=str(tmp_path))  # the bf16 default
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.train_on(*args, "DPSGD")
-    with pytest.raises(NotImplementedError, match="predict"):
-        api.predict("best_f1.pickle")
+    for fast in (dict(share_phase_dropout=True), dict(paired_phase_encode=True)):
+        with pytest.raises(ValueError, match="precast_params"):
+            TrainConfig(compute_dtype="bfloat16", precast_params=True, **fast)
     for field in (dict(n_eval=5), dict(shuffle_eval=True), dict(share_phase_dropout=True),
-                  dict(reuse_phase_features=True), dict(paired_phase_encode=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainConfig(**field)
-    with pytest.raises(ValueError, match="precast_params"):
-        TrainConfig(compute_dtype="bfloat16", precast_params=True, paired_phase_encode=True)
+                  dict(share_phase_dropout=True, reuse_phase_features=True),
+                  dict(paired_phase_encode=True)):
+        TrainConfig(**field)
     assert not os.listdir(tmp_path)  # nothing ran
 
 
