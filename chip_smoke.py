@@ -35,6 +35,14 @@ stochastic rounding on the card. Then drives the main paths at full width
    ``Trainer.run_epoch`` calls; ``TrainAndTest.predict`` on the bench
    configuration's checkpoint at n_eval = 1 and 4 (against ``eval_epoch``,
    timed at 601 rows, the vocabulary range check raising before any launch);
+6. the model zoo: TTCA, ITCA, IICA, TISC, NonPrivate, EquWeight and
+   ``feature_all_lap`` each through ``TrainAndTest.train_on`` in f32 (the
+   DP block fused where the class has it), one epoch (text streams cut
+   together to the longest text row: S = 80, the act text taking the EEG
+   rows' length), held to its predicted launches, card against CPU, its
+   best checkpoint reloaded and served through ``predict``, a step
+   profiled; TTCA and ITCA again at the bf16 default with the compact
+   vocab; one forward and backward of TICA_DPSGD and of the PriGumbel head;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -91,6 +99,11 @@ REPLACES = {"dp_fwd": "eeg_multimodal_tpu/ops/dp_pallas.py:63",
 
 EPS = 0.1
 N_TRAIN, N_EVAL, VALID_TOKENS = 64, 32, 65
+# valid tokens of the act text stream (tt, it). The repo holds no act rows
+# to tokenize; its one measured text length is the committed EEG rows'
+# longest, 65 tokens (eeg_multimodal_tpu/data/datasets.py:181), so the act
+# stream takes that bound: 25 integer channels against the EEG's 30
+ACT_TOKENS = VALID_TOKENS
 LAPLACE_MAX = math.log(2 ** 23) + 1e-3
 ATTN_DROP = 0.1  # BERT's attention-prob dropout
 NEG = float(np.finfo(np.float32).min)
@@ -236,11 +249,58 @@ def synth_rows(D, rng, n, seq=512):
     )
 
 
-def profile_step(torch, step, label, flops, work="2 forwards + 1 backward ~ 4 forwards"):
+def zoo_rows(D, rng, mt, n, seq=512):
+    """``n`` synthetic rows of the ``mt`` pairing, made with numpy: an EEG
+    text stream of VALID_TOKENS valid ids padded to ``seq``, an act text
+    stream of ACT_TOKENS (the faithful ``tt`` pairing feeds its attention
+    mask as ids, dataset.py:63), 512-d embeddings for an image stream, and
+    a label."""
+    def txt(valid):
+        mask = np.zeros((n, seq), np.int32)
+        mask[:, :valid] = 1
+        return {"input_ids": rng.randint(0, 30000, (n, seq)).astype(np.int32) * mask,
+                "attention_mask": mask}
+
+    kw = {}
+    for stream, kind, valid in (("eeg", mt[0], VALID_TOKENS), ("act", mt[1], ACT_TOKENS)):
+        kw[f"{stream}_{'txt' if kind == 't' else 'img'}"] = (
+            txt(valid) if kind == "t" else rng.randn(n, 512).astype(np.float32))
+    return D.build_pairing(mt, rng.randint(0, 2, n).astype(np.int32), **kw)
+
+
+def zoo_seq_lens(D):
+    """The text lengths S the zoo phase's attention runs at: each ZOO
+    pairing's text streams after ``train_on``'s ``truncate_pair``."""
+    rng = np.random.RandomState(0)
+    seqs = set()
+    for _, mt, _, _ in ZOO:
+        for part in D.truncate_pair(zoo_rows(D, rng, mt, 2), zoo_rows(D, rng, mt, 2)):
+            seqs |= {x.shape[1] for x, kind in zip((part.eeg_input, part.act_input), mt)
+                     if kind == "t"}
+    return seqs
+
+
+def zoo_launches(mt, dp_mode, steps, layers):
+    """The predicted kernel launches of one ``train_on`` epoch of ``steps``
+    train steps and one batched eval forward, with the fused DP block: the
+    alternating step (``lapacian_dropout``) runs two forwards and one
+    backward through the encoders, the single-optimizer step one of each;
+    each BERT stream launches ``layers`` attention kernels a forward or a
+    backward, and the DP block one kernel a forward or a backward, where
+    the class has it (phase 1's backward reaches only ``DP``)."""
+    alternating = dp_mode == "lapacian_dropout"
+    forwards = (2 if alternating else 1) * steps + 1
+    txt = mt.count("t")
+    return {"dp_fwd": forwards if alternating else 0,
+            "dp_bwd": 2 * steps if alternating else 0,
+            "attn_fwd": txt * layers * forwards, "attn_bwd": txt * layers * steps}
+
+
+def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~ 4 forwards"):
     """Host step time, device busy time, idle share, the top kernels, the
     host's kernel launches and the top host ops of one steady-state train
     step; returns the device us by kernel name. ``work`` says what ``flops``
-    counts."""
+    counts (None: no matmul count is printed)."""
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -248,9 +308,9 @@ def profile_step(torch, step, label, flops, work="2 forwards + 1 backward ~ 4 fo
         step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 5 * 1e3
-    print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s); matmul "
-          f"work ~{flops / 1e9:.0f} GFLOP/step ({work}) = "
-          f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak")
+    print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s)" + (
+        f"; matmul work ~{flops / 1e9:.0f} GFLOP/step ({work}) = "
+        f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak" if flops else ""))
     host = {}
     by_kernel = device_us(torch, step, n=3, host=host)
     if not by_kernel:
@@ -258,10 +318,10 @@ def profile_step(torch, step, label, flops, work="2 forwards + 1 backward ~ 4 fo
         return by_kernel
     busy_ms = sum(by_kernel.values()) / 1e3
     print(f"  device busy {busy_ms:.2f} ms/step, idle share "
-          f"{max(0.0, 1 - busy_ms / step_ms):.3f}; matmul work at "
-          f"{flops / (busy_ms * 1e-3) / 1e12:.2f} TFLOP/s of device time "
-          f"({flops / (busy_ms * 1e-3) / F32_OPS_PER_S:.3f} of the f32 peak); "
-          "top kernels (us/step):")
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}" + (
+              f"; matmul work at {flops / (busy_ms * 1e-3) / 1e12:.2f} TFLOP/s of device time "
+              f"({flops / (busy_ms * 1e-3) / F32_OPS_PER_S:.3f} of the f32 peak)" if flops
+              else "") + "; top kernels (us/step):")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:9.1f}  {name[:90]}")
     calls = {k: c for k, (c, _) in host.items()}
@@ -278,23 +338,28 @@ def profile_step(torch, step, label, flops, work="2 forwards + 1 backward ~ 4 fo
     return by_kernel
 
 
-def check_attention_kernels(torch, A, gen, dev):
+def check_attention_kernels(torch, A, gen, dev, zoo_seqs):
     """Attention kernels against their plain versions, at the main paths'
-    shapes (8, 12, 80, 64) and (8, 12, 512, 64) in f32 and bf16 and at
-    smaller ones; returns the max errors, both dropout rates together, as
-    ``{(kernel, dtype, (B, H, S, D)): max |kernel - plain|}``."""
+    shapes (8, 12, 80, 64) and (8, 12, 512, 64), and (8, 12, S, 64) for
+    each S of ``zoo_seqs`` (the zoo phase's text lengths), in f32 and bf16,
+    and at smaller ones; returns the max errors, both dropout rates
+    together, as ``{(kernel, dtype, (B, H, S, D)): max |kernel - plain|}``."""
     err = {}
-    for S in (80, 512):  # the kernels' mask is keep_mask_plain's, bit for bit
+    mask_seqs = sorted({80, 512} | set(zoo_seqs))
+    for S in mask_seqs:  # the kernels' mask is keep_mask_plain's, bit for bit
         seed = torch.tensor([2 ** 40 + S], dtype=torch.int64, device=dev)
         card = A.attn_dropout_mask(seed, 2, 3, S, ATTN_DROP).bool()
         check(torch.equal(card, A.keep_mask_plain(2 ** 40 + S, 2, 3, S, ATTN_DROP, dev)),
               f"attn_dropout_mask differs from keep_mask_plain at S = {S}")
-    print("  attn_dropout_mask equals keep_mask_plain at S = 80 and 512")
+    print(f"  attn_dropout_mask equals keep_mask_plain at S = {mask_seqs}")
     cases = [(2, 3, 80, 64, torch.float32), (8, 12, 80, 64, torch.float32),
              (8, 12, 128, 64, torch.float32), (8, 12, 512, 64, torch.float32),
              (1, 2, 512, 128, torch.float32),
              (2, 3, 80, 64, torch.bfloat16), (8, 12, 80, 64, torch.bfloat16),
              (8, 12, 512, 64, torch.bfloat16)]
+    cases += [(8, 12, S, 64, dtype) for S in sorted(zoo_seqs)
+              for dtype in (torch.float32, torch.bfloat16)
+              if (8, 12, S, 64, dtype) not in cases]
     for B, H, S, D, dtype in cases:
         f32 = dtype == torch.float32
         fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
@@ -408,19 +473,28 @@ def check_grouped_attention(torch, A, gen, dev):
     return err
 
 
+# a stream's model and coefficient as TrainAndTest's file layout names them
+STREAM_MODEL = {"t": ("bert", "bert-base-uncased"), "i": ("clip", "ViT-B/32")}
+
+
 def write_split(root, split, arrays):
-    """A ``ti`` split as the reference's files under ``root`` (the layout
-    ``TrainAndTest`` reads, base_train.py:77-125): the label CSV, the BERT
-    token pickle and the CLIP embedding pickle."""
+    """A split as the reference's files under ``root`` (the layout
+    ``TrainAndTest`` reads, base_train.py:77-125): the label CSV, and for
+    each stream a BERT token pickle (a ``t`` stream) or a CLIP embedding
+    pickle (an ``i`` stream), under STREAM_MODEL's names."""
     processed = os.path.join(root, "data", "processed")
     os.makedirs(processed, exist_ok=True)
     with open(os.path.join(processed, f"{split}_label.csv"), "w") as f:
         f.write("label\n" + "".join(f"{int(x)}\n" for x in arrays.labels))
-    items = [{"input_ids": ids[None], "attention_mask": m[None]}
-             for ids, m in zip(arrays.eeg_input, arrays.eeg_mask)]
-    for sub, obj in (("EEG/txt/bert_bert_base_uncased", items),
-                     ("act/img/clip_ViT_B_32", arrays.act_input[:, 0, :])):
-        path = os.path.join(root, "data", "embedding", sub)
+    for modal, kind, x, m in (("EEG", arrays.multimodal_type[0], arrays.eeg_input,
+                               arrays.eeg_mask),
+                              ("act", arrays.multimodal_type[1], arrays.act_input,
+                               arrays.act_mask)):
+        obj = ([{"input_ids": ids[None], "attention_mask": mk[None]} for ids, mk in zip(x, m)]
+               if kind == "t" else x[:, 0, :])
+        model, coef = STREAM_MODEL[kind]
+        sub = f"{'txt' if kind == 't' else 'img'}/{model}_{coef.replace('/', '_').replace('-', '_')}"
+        path = os.path.join(root, "data", "embedding", modal, sub)
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, f"{split}.pickle"), "wb") as f:
             pickle.dump(obj, f)
@@ -496,6 +570,244 @@ def check_stochastic_rounding(torch, O, dev):
           f"(seed, step): same {same}, other step {other_step}, other seed {other_seed}")
     print(f"  held values exact ({held.numel()}); {n} draws of {x0}: up {up:.5f} (0.3), "
           f"|mean - x| {mean_err:.3g}; bits equal the CPU's and uint32's; per (seed, step)")
+
+
+# The model zoo's trainable classes beside the flagship: (name, multimodal
+# type, dp_mode, cross-attention type), as config_for names them
+ZOO = (("TTCA_LapDropout", "tt", "lapacian_dropout", "double_stream"),
+       ("ITCA_LapDropout", "it", "lapacian_dropout", "double_stream"),
+       ("IICA_LapDropout", "ii", "lapacian_dropout", "double_stream"),
+       ("TISC_LapDropout", "ti", "lapacian_dropout", "single_stream"),
+       ("TICA_NonPrivate", "ti", "NDP", "double_stream"),
+       ("TISC_LapDropoutEquWeight", "ti", "lapacian_dropout_equal_weight", "double_stream"),
+       ("feature_all_lap", "ti", "feature_all_lap", "double_stream"))
+
+
+def run_zoo(torch, dev, rng, gen, all_kernels, layers, steps, step_fn):
+    """The zoo phase: each class of ZOO through ``TrainAndTest.train_on`` at
+    full width, f32, one epoch of N_TRAIN / N_EVAL rows, the DP block fused
+    where the class has it; its launches against ``zoo_launches``, finite
+    losses, DP trained, 2-row logits card against CPU (the noise handed
+    in), the best checkpoint reloaded and served through ``predict``, one
+    steady-state step profiled. Then TTCA and ITCA at ``TrainAndTest()``'s
+    bf16 default with the compact vocab, and one forward and backward of
+    TICA_DPSGD and of the PriGumbel head. Each trainer is freed before the
+    next."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.data.compact_vocab import remap_pairing
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.ops import dp as dp_ops
+    from eeg_multimodal_torch.train import api as api_mod
+    from eeg_multimodal_torch.train import metrics as M
+    from eeg_multimodal_torch.train.checkpoint import load_torch_checkpoint
+    from eeg_multimodal_torch.utils.trees import tree_cast, tree_items, tree_map
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    checked_seqs = zoo_seq_lens(D)  # the S the attention kernels were held at
+
+    class ZooRun(api_mod.TrainAndTest):
+        """``TrainAndTest`` with the DP block fused where the class has one
+        (``examples/train_demo.py --fused_dp``) and the F1 threshold below
+        any F1, so that one epoch of random weights writes its best
+        checkpoint (the reference starts it at 0.5, base_train.py:164)."""
+
+        def __init__(self, fused, **kw):
+            super().__init__(data_root=root, epochs=1, echo=False, **kw)
+            self.fused = fused
+
+        def run_configs(self, fusion_cfg, train_cfg):
+            return (dataclasses.replace(fusion_cfg, fused_dp_kernel=self.fused and
+                                        fusion_cfg.dp_mode == "lapacian_dropout"),
+                    dataclasses.replace(train_cfg, f1_best_init=-1.0))
+
+    def noise_for(cfg, rows):
+        """The head's Laplace(0, 1) draw as ``dp_noise``, on the card."""
+        width = {"lapacian_dropout": cfg.concat_width, "lapacian_dropout_equal_weight": 1,
+                 "feature_all_lap": 1}.get(cfg.dp_mode)
+        return None if width is None else torch.randn(rows, width, generator=gen, device=dev)
+
+    def card_against_cpu(forward, params, batch, noises, where, bf16=False):
+        """``forward(params, batch, *noises)`` on the card and on the CPU
+        with the same params and noise (2 rows): f32 at path 1's tolerance;
+        bf16 within half of bf16's own effect on the card's logits."""
+        def cpu(t):
+            return None if t is None else t.cpu()
+
+        with torch.no_grad():
+            p = tree_cast(params, torch.bfloat16) if bf16 else params
+            on_card = forward(p, batch, *noises)
+            on_cpu = forward(tree_map(cpu, p), tree_map(cpu, batch), *map(cpu, noises))
+            f32_card = forward(params, batch, *noises) if bf16 else None
+        check(on_card.dtype == torch.float32 and tuple(on_card.shape) == (2, 2)
+              and bool(torch.isfinite(on_card).all()), f"{where}: logits not finite f32 (2, 2)")
+        e = float((on_card.cpu() - on_cpu).abs().max())
+        if bf16:
+            effect = float((on_card - f32_card).abs().max())
+            print(f"  {where}: bf16 logits max|card - cpu| {e:.3g}, bf16's own effect on the "
+                  f"card {effect:.3g}")
+            check(e <= 0.5 * effect, f"{where}: bf16 card and CPU differ by {e:.3g}")
+        else:
+            print(f"  {where}: logits max|card - cpu| {e:.3g}")
+            torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-4)
+
+    def zoo_logits(params, data, cfg, where, bf16=False):
+        """``card_against_cpu`` of ``fusion.apply`` (hard, eval) on the first
+        two rows of ``data``, the head's noise handed in."""
+        def forward(p, batch, noise):
+            return fusion.apply(p, batch, cfg, EPS, True, None, False, dp_noise=noise)
+
+        card_against_cpu(forward, params, D.gather_batch(data, torch.arange(2, device=dev)),
+                         [noise_for(cfg, 2)], where, bf16)
+
+    def fit(name, mt, dp_mode, cross, api, **kw):
+        """One train_on epoch of ``name``, the f1 threshold below any F1 so
+        that fit writes its best checkpoint; returns (result, launches by
+        dtype, the truncated splits)."""
+        train_z, test_z = zoo_rows(D, rng, mt, N_TRAIN), zoo_rows(D, rng, mt, N_EVAL)
+        write_split(root, "test", test_z)
+        for k in all_kernels:
+            k.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = api.train_on(train_z, test_z, "DPMLD", f"{name}/", mt, dp_mode,
+                           cross_atn_type=cross, **kw)
+        wall = time.perf_counter() - t0
+        got = {k.name: dict(k.by_dtype) for k in all_kernels}
+        row = res["history"][0]
+        print(f"  train loss {row['train_loss']:.4f}, test loss {row['test_loss']:.4f}, f1 "
+              f"{row['f1']:.3f}; train_on {wall:.2f} s (init, epoch, checkpoint); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches by dtype {got}")
+        check(len(res["history"]) == 1 and all(math.isfinite(row[k]) for k in
+                                               ("train_loss", "test_loss", "f1")),
+              f"{name}: non-finite loss")
+        return res, got, D.truncate_pair(train_z, test_z)
+
+    api = ZooRun(fused=True, compute_dtype="float32")
+    for name, mt, dp_mode, cross in ZOO:
+        phase(f"zoo: {name} ({mt}, {dp_mode}, {cross}) through TrainAndTest.train_on, f32, "
+              "one epoch" + (", fused DP" if dp_mode == "lapacian_dropout" else ""))
+        fused = dp_mode == "lapacian_dropout"
+        res, got, (train_z, test_z) = fit(name, mt, dp_mode, cross, api)
+        seqs = [x.shape[1] for x, kind in zip((train_z.eeg_input, train_z.act_input), mt)
+                if kind == "t"]
+        seq = "S = " + " and ".join(map(str, seqs)) if seqs else "no text"
+        print(f"  text streams after train_on's truncation: {seq}")
+        check(set(seqs) <= checked_seqs,
+              f"{name}: S {seqs} outside the attention checks' {sorted(checked_seqs)}")
+        check(api.trainer.fusion_cfg.fused_dp_kernel == fused,
+              f"{name}: the DP block is not fused as it should be")
+        want = zoo_launches(mt, dp_mode, steps, layers)
+        want = {k: ({"float32": n} if n else {}) for k, n in want.items()}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        tr = api.trainer
+        check(("DP" in tr.params) == fused and (not fused or float(tr.params["DP"].abs().max()) > 0),
+              f"{name}: DP missing or not trained")
+        check(tr.steps.has_dp_param == fused, f"{name}: the wrong step")
+        cfg = dataclasses.replace(tr.fusion_cfg, fused_dp_kernel=False)
+        test_dev = test_z.to_device(dev)
+        zoo_logits(tr.params, test_dev, cfg, name)
+        ckpt = os.path.join(root, "models", "custom", "DPMLD", name, "best_f1.pickle")
+        check(res["best"] is not None and os.path.exists(ckpt), f"{name}: no best checkpoint")
+        loaded = dict(tree_items(load_torch_checkpoint(ckpt, cfg, device=dev)))
+        live = dict(tree_items(tr.params))
+        check(loaded.keys() == live.keys() and all(torch.equal(loaded[k], live[k]) for k in live),
+              f"{name}: the checkpoint differs from the best params")
+        del loaded, live
+        eeg_model, eeg_coef = STREAM_MODEL[mt[0]]
+        act_model, act_coef = STREAM_MODEL[mt[1]]
+        for k in all_kernels:
+            k.reset()
+        t0 = time.perf_counter()
+        res_p = api.predict(ckpt, mt, dp_mode, eeg_model, eeg_coef, act_model, act_coef, cross,
+                            epsilon=EPS)
+        predict_s = time.perf_counter() - t0
+        got_p = {k.name: k.launches for k in all_kernels}
+        want_p = {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": mt.count("t") * layers, "attn_bwd": 0}
+        check(got_p == want_p, f"{name}: predict launches {got_p}, expected {want_p}")
+        check(len(res_p["predictions"]) == N_EVAL and math.isfinite(res_p["loss"])
+              and np.isfinite(res_p["scores"]).all(), f"{name}: predict's output")
+        print(f"  best checkpoint (epoch {res['best']['epoch']}) reloads equal; predict {N_EVAL} "
+              f"rows in {predict_s:.2f} s (load included): loss {res_p['loss']:.4f}, accuracy "
+              f"{res_p['accuracy']:.3f}, launches {got_p}")
+        os.remove(ckpt)
+        step = step_fn(tr, train_z.to_device(dev))
+        profile_step(torch, step, f"{name}, {seq}, f32")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the step raises
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print("  one more step under torch.cuda.set_sync_debug_mode('error'): no host sync")
+        api.trainer = None
+        del tr, test_dev, step
+        torch.cuda.empty_cache()
+
+    # bf16: both decoder orientations of the new streams on the card
+    api16 = ZooRun(fused=False)
+    check(api16.compute_dtype == "bfloat16", f"TrainAndTest defaults to {api16.compute_dtype}")
+    for name, mt in (("TTCA_LapDropout", "tt"), ("ITCA_LapDropout", "it")):
+        phase(f"zoo: {name} at TrainAndTest()'s bf16 default, train_on(compact_vocab=True), "
+              "one epoch")
+        res, got, (train_z, test_z) = fit(name + "_bf16", mt, "lapacian_dropout",
+                                          "double_stream", api16, compact_vocab=True)
+        want = zoo_launches(mt, "lapacian_dropout", steps, layers)
+        want = {"dp_fwd": {}, "dp_bwd": {}, "attn_fwd": {"bfloat16": want["attn_fwd"]},
+                "attn_bwd": {"bfloat16": want["attn_bwd"]}}
+        check(got == want, f"{name} bf16: launches {got}, expected {want}")
+        tr = api16.trainer
+        check(tr.vocab is not None and tr.steps.compute_dtype == torch.bfloat16,
+              f"{name} bf16: no compact vocab or not bf16")
+        check(float(tr.params["DP"].abs().max()) > 0, f"{name} bf16: DP did not train")
+        test_dev = remap_pairing(test_z, tr.vocab).to_device(dev)
+        zoo_logits(tr.params, test_dev, tr.fusion_cfg, f"{name} bf16", bf16=True)
+        api16.trainer = None
+        del tr, test_dev
+        torch.cuda.empty_cache()
+
+    phase("zoo: one forward and backward of TICA_DPSGD and of the PriGumbel head, full "
+          "width, batch 8, EEG text at S = 80")
+    data = D.truncate_pair(zoo_rows(D, rng, "ti", 8), zoo_rows(D, rng, "ti", 8))[0].to_device(dev)
+    weight = torch.ones(8, device=dev)
+    for name, cfg, init, forward in (
+            ("TICA_DPSGD", fusion.config_for("ti", "DPSGD"), fusion.init,
+             lambda p, b, c, g, t: fusion.apply(p, b, c, EPS, True, g, t)),
+            ("PriGumbel", fusion.config_for("ti", "NDP"), fusion.legacy_pri_gumbel_init,
+             lambda p, b, c, g, t: fusion.legacy_pri_gumbel_apply(p, b, c, EPS, gen=g,
+                                                                   train=t))):
+        params = init(cfg, 0, dev)
+        leaves = [t for _, t in tree_items(params)]
+        for t in leaves:
+            t.requires_grad_()
+        for k in all_kernels:
+            k.reset()
+        logits = forward(params, data, cfg, gen, True)
+        grads = torch.autograd.grad(M.cal_loss(logits, data["labels"], weight)[0], leaves)
+        got = {k.name: k.launches for k in all_kernels}
+        want = {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": layers, "attn_bwd": layers}
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        check(tuple(logits.shape) == (8, 2) and bool(torch.isfinite(logits).all())
+              and all(bool(torch.isfinite(g).all()) for g in grads)
+              and max(float(g.abs().max()) for g in grads) > 0,
+              f"{name}: logits or gradients not finite, or all zero")
+        gw = dict(zip((p for p, _ in tree_items(params)), grads)).get("w")
+        extra = "" if gw is None else f", |grad w| max {float(gw.abs().max()):.3g}"
+        print(f"  {name}: F = {cfg.concat_width}, logits and gradients finite, launches "
+              f"{got}{extra}")
+        params = tree_map(torch.Tensor.detach, params)
+        if name == "TICA_DPSGD":
+            zoo_logits(params, data, cfg, name)
+        else:
+            card_against_cpu(
+                lambda p, b, g, lap: fusion.legacy_pri_gumbel_apply(
+                    p, b, cfg, EPS, gumbel=g, lap_noise=lap),
+                params, D.gather_batch(data, torch.arange(2, device=dev)),
+                [dp_ops.gumbel_noise((768, 2), gen, dev),
+                 torch.randn(2, 1, generator=gen, device=dev)], name)
+        del params, leaves, grads, logits
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
 
 
 # cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
@@ -630,7 +942,7 @@ def main():
 
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
-    err.update(check_attention_kernels(torch, A, gen, dev))
+    err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D)))
     print("  G = 2 max errors: " + ", ".join(
         f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(torch, A, gen,
                                                                             dev).items()))
@@ -1117,6 +1429,7 @@ def main():
     del loaded, pred_dev, data601, api_p, steps_p
 
     del trainer, train_dev, test_dev, bench, api3, tr3, train_b_dev, test_b_dev
+    run_zoo(torch, dev, rng, gen, all_kernels, layers, steps, step_fn)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)

@@ -11,8 +11,10 @@ stack draws what G forwards over one batch each would (the paired phase
 encode's two phases in one 2B forward).
 
 The reference builds its cross-attention block from ``nn.TransformerDecoder``
-(python/src/custom_models/models.py:44-45): post-LN, ReLU FFN of width 2048,
-dropout 0.1, key-padding masks that send masked scores to -inf.
+(python/src/custom_models/models.py:44-45), and TISC's single-stream block
+from ``nn.TransformerEncoder`` (:235-236): post-LN, ReLU FFN of width 2048,
+dropout 0.1 (at four sites of an encoder layer, six of a decoder layer),
+key-padding masks that send masked scores to -inf.
 
 Under a bf16 compute cast the functions keep the JAX package's dtype trail
 (layers.py:80-143 there): a linear accumulates in f32, adds its bias in f32
@@ -160,7 +162,7 @@ def multi_head_attention(
 
 
 # ---------------------------------------------------------------------------
-# TransformerDecoderLayer (torch post-LN defaults)
+# TransformerDecoderLayer / TransformerEncoderLayer (torch post-LN defaults)
 # ---------------------------------------------------------------------------
 
 def decoder_layer_init(gen, d_model: int, device):
@@ -197,11 +199,15 @@ def decoder_layer(
     return layer_norm(params["norm3"], x + dropout(h, dropout_rate, gen))
 
 
-def decoder_init(gen, d_model: int, num_layers: int, device):
-    """torch nn.TransformerDecoder(layer, num_layers) deep-copies one layer,
-    so every layer starts identical (ref: models.py:45)."""
-    layer = decoder_layer_init(gen, d_model, device)
+def _copies(layer, num_layers: int):
+    """torch nn.TransformerDecoder / nn.TransformerEncoder(layer, num_layers)
+    deep-copy one layer, so every layer starts identical (ref:
+    models.py:45, :236)."""
     return {"layers": [tree_map(torch.clone, layer) for _ in range(num_layers)]}
+
+
+def decoder_init(gen, d_model: int, num_layers: int, device):
+    return _copies(decoder_layer_init(gen, d_model, device), num_layers)
 
 
 def decoder(
@@ -217,4 +223,43 @@ def decoder(
             memory_key_padding_mask=memory_key_padding_mask,
             gen=gen, dropout_rate=dropout_rate,
         )
+    return x
+
+
+def encoder_layer_init(gen, d_model: int, device):
+    return {
+        "self_attn": mha_init(gen, d_model, device),
+        "linear1": linear_init(gen, d_model, FFN_DIM, device),
+        "linear2": linear_init(gen, FFN_DIM, d_model, device),
+        "norm1": layer_norm_init(d_model, device),
+        "norm2": layer_norm_init(d_model, device),
+    }
+
+
+def encoder_layer(params, src, num_heads: int, src_key_padding_mask=None, gen=None,
+                  dropout_rate: float = P_DROP):
+    """torch nn.TransformerEncoderLayer (norm_first=False, relu), the TISC
+    single-stream block (ref: models.py:235-236)."""
+    x = src
+    sa = multi_head_attention(
+        params["self_attn"], x, x, num_heads,
+        key_padding_mask=src_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+    )
+    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen))
+    h = dropout(torch.relu(linear(params["linear1"], x)), dropout_rate, gen)
+    h = linear(params["linear2"], h)
+    return layer_norm(params["norm2"], x + dropout(h, dropout_rate, gen))
+
+
+def encoder_init(gen, d_model: int, num_layers: int, device):
+    return _copies(encoder_layer_init(gen, d_model, device), num_layers)
+
+
+def encoder(params, src, num_heads: int, src_key_padding_mask=None, gen=None,
+            dropout_rate: float = P_DROP):
+    x = src
+    for layer_params in params["layers"]:
+        x = encoder_layer(layer_params, x, num_heads,
+                          src_key_padding_mask=src_key_padding_mask, gen=gen,
+                          dropout_rate=dropout_rate)
     return x

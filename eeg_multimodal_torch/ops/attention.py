@@ -33,7 +33,8 @@ import math
 import torch
 
 from . import _build
-from .dp_fused import KernelWrapper, random_bits
+from .dp import random_bits
+from .dp_fused import KernelWrapper
 from .philox import philox_words
 
 HEAD_DIMS = (64, 128)  # the head widths the kernels are built for

@@ -30,34 +30,13 @@ import torch
 
 from . import _build
 from . import dp as dp_ops
+from .dp import laplace_from_bits
 from .philox import philox_words
-
-_U23 = 1.0 / (1 << 23)
 
 
 # ---------------------------------------------------------------------------
 # Plain versions (the CPU path, and the yardstick of the kernels on the card)
 # ---------------------------------------------------------------------------
-
-def random_bits(shape, generator: torch.Generator, device="cpu"):
-    """Uniform 32-bit draws, held in int64 (torch has no uint32 sampler)."""
-    return torch.randint(0, 1 << 32, shape, generator=generator,
-                         dtype=torch.int64, device=device)
-
-
-def laplace_from_bits(bits):
-    """Laplace(0, 1) by the inverse CDF of U(-1/2, 1/2): -sign(u) log1p(-2|u|).
-
-    The top 23 of 32 bits plus a half step keep u01 strictly inside (0, 1):
-    ``k + 0.5`` is exact in f32 for ``k < 2**23``, so |u| <= 1/2 - 2**-24
-    and the noise is bounded by ln(2**23) ~ 15.9. A uniform draw of exactly
-    0 would give log1p(-1) = -inf: the bug pinned by
-    ``tools/repro_fused_dp_scan_nan.py`` of the JAX package.
-    """
-    k = torch.bitwise_right_shift(bits, 9).to(torch.float32)
-    u = (k + 0.5) * _U23 - 0.5
-    return -torch.sign(u) * torch.log1p(-2.0 * u.abs())
-
 
 def laplace_plain(seed: int, shape, device="cpu"):
     """The kernels' exact noise for ``seed`` over ``shape``: element n (its

@@ -11,8 +11,9 @@ on-disk layout,
   logs/<train_type>/<path_suffix>{whole,best}_record.txt
 
 with the port's trainer underneath, on the card unless ``device="cpu"``,
-and ``predict``, which evaluates a trained checkpoint. What the port does
-not run yet (DPSGD and the other model classes) raises
+and ``predict``, which evaluates a trained checkpoint. Every class of the
+model zoo trains and predicts but ``dp_mode="DPSGD"``, whose DP-SGD
+trainer the port does not have yet: ``train_on`` raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -140,15 +141,21 @@ class TrainAndTest:
         so Adam leaves them as they are), and checkpoints scatter the table
         back to full-vocab rows. ``vocab`` is a prebuilt ``CompactVocab``
         for data (and ``bert_params``) the caller remapped already; pass one
-        or the other (api.py:118-228 of the JAX package).
+        or the other (api.py:118-228 of the JAX package). A setting of the
+        run's ``FusionConfig`` or ``TrainConfig`` that these arguments do
+        not reach is set by overriding :meth:`run_configs`.
         """
+        if dp_mode == "DPSGD":
+            raise NotImplementedError(
+                "dp_mode='DPSGD' trains through the DP-SGD trainer, which the port does not "
+                "have yet (ROADMAP.md, queue 1, item 11)")
         if compact_vocab and vocab is not None:
             raise ValueError("pass either compact_vocab=True or a prebuilt vocab")
         if auto_truncate:
             train_data, test_data = D.truncate_pair(train_data, test_data)
 
         bert_params = self.bert_params
-        if compact_vocab and dp_mode != "DPSGD" and "t" in multimodal_type:
+        if compact_vocab and "t" in multimodal_type:
             base_cfg = bert_config or BertConfig.for_coef(eeg_model_coef)
             streams = []
             for d in (train_data, test_data):
@@ -169,10 +176,9 @@ class TrainAndTest:
                                bert_coef=eeg_model_coef, dtype="float32")
         if bert_config is not None:
             fc = dataclasses.replace(fc, bert_config=bert_config)
-        fusion.check_ported(fc)  # DPSGD and the other classes wait
-        tc = TrainConfig(batch_size=self.batch_size, learning_rate=self.learning_rate,
-                         epochs=self.epochs, compute_dtype=self.compute_dtype,
-                         seed=self.seed)
+        fc, tc = self.run_configs(fc, TrainConfig(
+            batch_size=self.batch_size, learning_rate=self.learning_rate, epochs=self.epochs,
+            compute_dtype=self.compute_dtype, seed=self.seed))
         model_path = os.path.join(self.artifacts_root, "models", "custom", train_type,
                                   path_suffix, "best_f1.pickle")
         log_path = os.path.join(self.artifacts_root, "logs", train_type, path_suffix)
@@ -180,6 +186,13 @@ class TrainAndTest:
                                vocab=vocab)
         return self.trainer.fit(train_data, test_data, epsilon, log_path=log_path,
                                 model_path=model_path, echo=self.echo)
+
+    def run_configs(self, fusion_cfg: fusion.FusionConfig, train_cfg: TrainConfig):
+        """The ``(FusionConfig, TrainConfig)`` a ``train_on`` run trains
+        with, as built from its arguments and this object's. A subclass
+        overrides it to change a field the API does not take, e.g. the DP
+        block's ``fused_dp_kernel`` or ``TrainConfig.f1_best_init``."""
+        return fusion_cfg, train_cfg
 
     # -- inference on a trained checkpoint (api.py:230-327 there) -------------
     def predict(
@@ -220,13 +233,13 @@ class TrainAndTest:
                                bert_coef=eeg_model_coef, dtype="float32")
         if bert_config is not None:
             fc = dataclasses.replace(fc, bert_config=bert_config)
-        fusion.check_ported(fc)
         dev = self.device if device is None else resolve_device(device)
         params = load_torch_checkpoint(checkpoint, fc, dev)
-        rows = params["bert"]["embeddings"]["word"].shape[0]
-        for stream, is_txt in ((data.eeg_input, multimodal_type[0] == "t"),
-                               (data.act_input, multimodal_type[1] == "t")):
-            if is_txt and int(np.max(stream)) >= rows:
+        txt = [s for s, kind in zip((data.eeg_input, data.act_input), multimodal_type)
+               if kind == "t"]
+        for stream in txt:
+            rows = params["bert"]["embeddings"]["word"].shape[0]
+            if int(np.max(stream)) >= rows:
                 raise ValueError(
                     f"token id {int(np.max(stream))} out of range for the checkpoint's "
                     f"{rows}-row embedding table: the checkpoint was trained on a "

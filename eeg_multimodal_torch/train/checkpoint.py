@@ -1,18 +1,23 @@
 """Best-F1 checkpoints in the reference's torch state-dict format.
 
 Port of the JAX package's ``train/checkpoint.py:82-257`` (with the BERT part
-of ``models/bert.py:228-314``) for the model the port runs (``ti`` /
-double-stream). The reference checkpoints ``torch.save(model.state_dict(),
-...best_f1.pickle)`` on F1 improvement (base_train.py:250-255); both
-packages write the same file: a plain pickle of numpy arrays in torch layout
-(a linear's weight is (out, in)) under the reference's nn.Module key names,
+of ``models/bert.py:228-314``) for every class of the model zoo. The
+reference checkpoints ``torch.save(model.state_dict(), ...best_f1.pickle)``
+on F1 improvement (base_train.py:250-255); both packages write the same
+file: a plain pickle of numpy arrays in torch layout (a linear's weight is
+(out, in)) under the reference's nn.Module key names, each part where the
+class has it,
 
-  bert.embeddings.*, bert.encoder.layer.N.*, bert.pooler.dense.*  (HF BertModel),
-  visual_encoder.weight/.bias,
+  bert.embeddings.*, bert.encoder.layer.N.*, bert.pooler.dense.*  (HF BertModel;
+  a ``t`` stream),
+  visual_encoder.weight/.bias  (an ``i`` stream),
   multi_head_decoderlayer.* (the prototype submodule, a copy of layer 0) and
   multi_head_decoder.layers.N.{self_attn,multihead_attn,linear1,linear2,
-  norm1,norm2,norm3}.*  (models.py:44-45),
-  fc_layers.{0,2}.weight/.bias, classifier.weight/.bias, DP (models.py:46-53),
+  norm1,norm2,norm3}.*  (models.py:44-45; double stream), or
+  multi_head_encoderlayer.* and multi_head_encoder.layers.N.{self_attn,
+  linear1,linear2,norm1,norm2}.*  (models.py:235-236; TISC), none for DPSGD,
+  fc_layers.{0,2}.weight/.bias, classifier.weight/.bias,
+  DP (models.py:46-53; lapacian_dropout), w (the PriGumbel head),
 
 so a checkpoint written by either package loads in the other, and in
 ``torch.load(weights_only=False)``. This module is the one place that knows
@@ -27,7 +32,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.fusion import N_CROSS_LAYERS, FusionConfig, check_ported
+from ..models.fusion import N_CROSS_LAYERS, FusionConfig
 from ..utils.device import resolve_device
 
 # (tree path under a BERT layer, state-dict name under encoder.layer.N.)
@@ -41,9 +46,17 @@ _BERT_LAYER = (
     (("ffn", "output"), "output.dense"),
     (("ffn", "ln"), "output.LayerNorm"),
 )
-_DECODER_LINEARS = ("linear1", "linear2")
-_DECODER_NORMS = ("norm1", "norm2", "norm3")
-_DECODER_ATTN = (("self_attn", "self_attn."), ("cross_attn", "multihead_attn."))
+# (tree key, state-dict name) of a decoder layer's and an encoder layer's
+# attention blocks, and their linears and norms
+_CROSS_LAYER = {
+    "decoder": ((("self_attn", "self_attn."), ("cross_attn", "multihead_attn.")),
+                ("linear1", "linear2", "norm1", "norm2", "norm3")),
+    "encoder": ((("self_attn", "self_attn."),), ("linear1", "linear2", "norm1", "norm2")),
+}
+
+
+def _cross_kind(config: FusionConfig) -> str:
+    return "encoder" if config.cross_atn_type == "single_stream" else "decoder"
 
 
 def normalize_torch_keys(sd: Dict) -> Dict:
@@ -78,10 +91,11 @@ def _put_mha(out, base, p):
     _put(out, base + "out_proj", p["out_proj"])
 
 
-def _put_decoder_layer(out, base, p):
-    for key, name in _DECODER_ATTN:
+def _put_cross_layer(out, kind, base, p):
+    attn, rest = _CROSS_LAYER[kind]
+    for key, name in attn:
         _put_mha(out, base + name, p[key])
-    for n in _DECODER_LINEARS + _DECODER_NORMS:
+    for n in rest:
         _put(out, base + n, p[n])
 
 
@@ -102,16 +116,20 @@ def bert_to_torch_state_dict(params, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def fusion_to_torch_state_dict(params, config: FusionConfig) -> Dict[str, np.ndarray]:
     """The port's tree -> the reference's state-dict names, numpy arrays in
-    torch layout. The prototype decoder layer (multi_head_decoderlayer.*) is
-    a copy of layer 0, as torch registers it (models.py:44-45)."""
-    check_ported(config)
-    out: Dict[str, np.ndarray] = {"DP": _np(params["DP"])}
-    out.update(bert_to_torch_state_dict(params["bert"], prefix="bert."))
-    _put(out, "visual_encoder", params["visual_encoder"])
-    layers = params["cross"]["layers"]
-    _put_decoder_layer(out, "multi_head_decoderlayer.", layers[0])
-    for i, lp in enumerate(layers):
-        _put_decoder_layer(out, f"multi_head_decoder.layers.{i}.", lp)
+    torch layout, in the JAX package's key order. The prototype layer
+    (multi_head_decoderlayer.* or multi_head_encoderlayer.*) is a copy of
+    layer 0, as torch registers it (models.py:44-45)."""
+    out: Dict[str, np.ndarray] = {k: _np(params[k]) for k in ("DP", "w") if k in params}
+    if config.uses_bert:
+        out.update(bert_to_torch_state_dict(params["bert"], prefix="bert."))
+    if config.uses_visual:
+        _put(out, "visual_encoder", params["visual_encoder"])
+    if config.with_cross_attention:
+        kind = _cross_kind(config)
+        layers = params["cross"]["layers"]
+        _put_cross_layer(out, kind, f"multi_head_{kind}layer.", layers[0])
+        for i, lp in enumerate(layers):
+            _put_cross_layer(out, kind, f"multi_head_{kind}.layers.{i}.", lp)
     _put(out, "fc_layers.0", params["fc1"])
     _put(out, "fc_layers.2", params["fc2"])
     _put(out, "classifier", params["classifier"])
@@ -141,10 +159,11 @@ class _Reader:
                 "in_proj_bias": self.get(base + "in_proj_bias"),
                 "out_proj": self.linear(base + "out_proj")}
 
-    def decoder_layer(self, base):
-        layer = {key: self.mha(base + name) for key, name in _DECODER_ATTN}
-        layer.update({n: self.linear(base + n) for n in _DECODER_LINEARS})
-        layer.update({n: self.ln(base + n) for n in _DECODER_NORMS})
+    def cross_layer(self, kind, base):
+        attn, rest = _CROSS_LAYER[kind]
+        layer = {key: self.mha(base + name) for key, name in attn}
+        layer.update({n: (self.ln if n.startswith("norm") else self.linear)(base + n)
+                      for n in rest})
         return layer
 
     def bert(self, config, prefix):
@@ -164,19 +183,25 @@ class _Reader:
 
 def fusion_from_torch_state_dict(sd: Dict, config: FusionConfig, device=None):
     """A reference state dict (tensors or numpy arrays) -> the port's f32
-    tree on ``device`` (the card unless "cpu")."""
-    check_ported(config)
-    r = _Reader(normalize_torch_keys(sd), resolve_device(device))
-    return {
-        "bert": r.bert(config.bert_cfg(), "bert."),
-        "visual_encoder": r.linear("visual_encoder"),
-        "cross": {"layers": [r.decoder_layer(f"multi_head_decoder.layers.{i}.")
-                             for i in range(N_CROSS_LAYERS)]},
-        "fc1": r.linear("fc_layers.0"),
-        "fc2": r.linear("fc_layers.2"),
-        "classifier": r.linear("classifier"),
-        "DP": r.get("DP"),
-    }
+    tree on ``device`` (the card unless "cpu"): the parts ``config``'s class
+    has, and ``DP`` and ``w`` where the state dict holds them, as the JAX
+    package reads them (checkpoint.py:158-185 there)."""
+    sd = normalize_torch_keys(sd)
+    r = _Reader(sd, resolve_device(device))
+    params = {}
+    if config.uses_bert:
+        params["bert"] = r.bert(config.bert_cfg(), "bert.")
+    if config.uses_visual:
+        params["visual_encoder"] = r.linear("visual_encoder")
+    if config.with_cross_attention:
+        kind = _cross_kind(config)
+        params["cross"] = {"layers": [r.cross_layer(kind, f"multi_head_{kind}.layers.{i}.")
+                                      for i in range(N_CROSS_LAYERS)]}
+    params["fc1"] = r.linear("fc_layers.0")
+    params["fc2"] = r.linear("fc_layers.2")
+    params["classifier"] = r.linear("classifier")
+    params.update({k: r.get(k) for k in ("DP", "w") if k in sd})
+    return params
 
 
 def save_torch_checkpoint(path: str, params, config: FusionConfig) -> None:

@@ -1,10 +1,16 @@
-"""The alternating two-optimizer DP-MLD trainer.
+"""The DP-MLD trainer: the alternating two-optimizer step and the
+single-optimizer step.
 
 Port of the JAX package's ``train/trainer.py`` (reference semantics:
-base_train.py:167-255). Per batch, the faithful step:
+base_train.py:167-255). Per batch, the faithful step of a class with the
+learned DP block (``lapacian_dropout``):
 
 1. forward with hard=False, the gradient w.r.t. ``DP`` only, Adam on ``DP``;
 2. forward with hard=True, the gradient w.r.t. every other parameter, Adam.
+
+The other classes (NDP, DPSGD, equal weight, ``feature_all_lap``) have no
+``DP`` leaf and take step 2 alone over every parameter, the fast modes
+ignored (base_train.py:436-553; trainer.py:321-340 there).
 
 Then a stochastic eval epoch (hard=True, dropout off, DP noise on, each
 batch under ``n_eval`` noise draws) and F1. PyTorch runs eagerly: an epoch is
@@ -168,15 +174,18 @@ class StepFunctions:
 
     def __init__(self, fusion_cfg: fusion.FusionConfig, train_cfg: TrainConfig,
                  device=None):
-        fusion.check_ported(fusion_cfg)
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, train_cfg.compute_dtype)
         self.precast = train_cfg.precast_params and self.compute_dtype != torch.float32
-        # the step's mode, in the JAX package's order of precedence
-        self.reuse = train_cfg.reuses_features
-        self.paired = train_cfg.paired_phase_encode and not self.reuse
+        # the alternating step needs the DP leaf; the other classes take the
+        # single-optimizer step (trainer.py:154, :321-340 there)
+        self.has_dp_param = fusion_cfg.dp_mode == "lapacian_dropout"
+        # the step's mode, in the JAX package's order of precedence: the fast
+        # modes act only on the alternating step
+        self.reuse = train_cfg.reuses_features and self.has_dp_param
+        self.paired = train_cfg.paired_phase_encode and not self.reuse and self.has_dp_param
         self.dp_opt = Adam(train_cfg.learning_rate)  # the (1, F) DP leaf: f32 moments
         self.model_opt = Adam(train_cfg.learning_rate,
                               mu_dtype=getattr(torch, train_cfg.adam_mu_dtype),
@@ -187,7 +196,8 @@ class StepFunctions:
         def leaves(select):
             return [t for path, t in tree_items(params) if select(path)]
 
-        return self.dp_opt.init(leaves(fusion.dp_param_predicate)), self.model_opt.init(leaves(_is_model))
+        dp_os = self.dp_opt.init(leaves(fusion.dp_param_predicate)) if self.has_dp_param else None
+        return dp_os, self.model_opt.init(leaves(_is_model))
 
     def compute(self, params):
         """``params`` in the compute dtype: the differentiable cast of
@@ -221,9 +231,12 @@ class StepFunctions:
 
     def train_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
                    dp_noise=(None, None), dropout=True, params_c=None):
-        """One alternating step in the configured mode; updates ``params`` in
-        place and returns (dp_os, model_os, loss, acc) with phase 2's loss
-        and accuracy.
+        """One step in the configured mode; updates ``params`` in place and
+        returns (dp_os, model_os, loss, acc) with phase 2's loss and
+        accuracy. Without a ``DP`` leaf the step is phase 2 alone, over
+        every parameter, drawing from phase 2's generator (the
+        single-optimizer regimes: NDP, DPSGD, equal weight,
+        ``feature_all_lap``; trainer.py:321-340 there).
 
         ``gen``: the step's generator, or a pair, phase 1's and phase 2's
         (:meth:`phase_generators`); with ``share_phase_dropout`` phase 2
@@ -238,6 +251,9 @@ class StepFunctions:
         can be held against the JAX reference's.
         """
         g1, g2 = self.phase_generators(gen)
+        if not self.has_dp_param:
+            return (dp_os, *self._model_phase(params, model_os, batch, weight, epsilon, g2,
+                                              dp_noise[1], dropout, params_c))
         if self.reuse:
             return self._shared_feature_step(params, dp_os, model_os, batch, weight, epsilon,
                                              g1, dp_noise, dropout)
@@ -266,20 +282,30 @@ class StepFunctions:
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
         if replay is not None:
             g2.set_state(replay)
+        return (dp_os, *self._model_phase(params, model_os, batch, weight, epsilon, g2,
+                                          dp_noise[1], dropout, params_c))
+
+    def _model_phase(self, params, model_os, batch, weight, epsilon, gen, noise, dropout,
+                     params_c):
+        """The gradient w.r.t. every parameter but ``DP`` (hard=True) and
+        Adam on them: phase 2 of the alternating step, or the whole
+        single-optimizer step. With ``params_c`` the gradient is taken
+        w.r.t. the compute-dtype copy and cast up, and the copy is refreshed
+        from the updated masters. Returns (model_os, loss, acc)."""
         if params_c is None:
-            p2, aliases, model_leaves = _track(params, _is_model)
-            p2 = self.compute(p2)
+            p, aliases, model_leaves = _track(params, _is_model)
+            p = self.compute(p)
         else:
-            # gradients w.r.t. the bf16 copy, cast up for the f32 update
-            p2, aliases, copies = _track(with_dp(params["DP"].detach().to(cd)), _is_model)
+            dp = {"DP": params["DP"].detach().to(self.compute_dtype)} if "DP" in params else {}
+            p, aliases, copies = _track({**params_c, **dp}, _is_model)
             model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
-        loss, acc, _, _ = self.loss_fn(p2, batch, weight, epsilon, g2, hard=True,
-                                       train=dropout, dp_noise=dp_noise[1])
+        loss, acc, _, _ = self.loss_fn(p, batch, weight, epsilon, gen, hard=True, train=dropout,
+                                       dp_noise=noise)
         grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
         model_os = self.model_opt.update(model_leaves, grads, model_os)
         if params_c is not None:
             torch._foreach_copy_(copies, model_leaves)
-        return dp_os, model_os, loss.detach(), acc.detach()
+        return model_os, loss.detach(), acc.detach()
 
     # -- the fast modes' two phases over features encoded once -----------------
     def _model_tree(self, params):
@@ -294,7 +320,8 @@ class StepFunctions:
         (cast to the compute dtype, as the whole tree is in the faithful
         step)."""
         params = {**pc, "DP": dp.to(self.compute_dtype)}
-        logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen, noise)
+        logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen,
+                                   train=True, dp_noise=noise)
         return M.cal_loss(logits, batch["labels"], weight)[:2]
 
     def _two_phases(self, params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
@@ -470,7 +497,7 @@ class Trainer:
         full-vocab rows (as a CPU tensor), so that state dicts keep the
         reference's layout (trainer.py:604-618 there)."""
         params = self.params if params is None else params
-        if self.vocab is None:
+        if self.vocab is None or "bert" not in params:
             return params
         word = params["bert"]["embeddings"]["word"].detach().cpu().numpy()
         emb = {**params["bert"]["embeddings"],

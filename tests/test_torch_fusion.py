@@ -119,21 +119,42 @@ def test_params_from_jax_refuses_a_tree_of_another_config(jax_params):
 
 
 def test_config_for_matches_jax_and_unported_configs_are_refused():
+    """``config_for`` gives the JAX package's fields for every combination;
+    every class of the JAX package's list (tests/test_fusion.py:115-128)
+    inits with its leaf names and shapes (a tiny BERT); a configuration
+    neither package has is refused."""
     for mt, dp, cross in itertools.product(
             ("ti", "tt", "it", "ii"),
             ("lapacian_dropout", "NDP", "DPSGD", "lapacian_dropout_equal_weight"),
             ("double_stream", "single_stream")):
         j, t = JF.config_for(mt, dp, cross), TF.config_for(mt, dp, cross)
         fields = ("name", "multimodal_type", "cross_atn_type", "dp_mode",
-                  "with_cross_attention", "use_key_padding_masks")
+                  "with_cross_attention", "use_key_padding_masks", "dropout_rate",
+                  "gumbel_tau", "n_streams_txt", "uses_bert", "uses_visual")
         assert [getattr(t, f) for f in fields] == [getattr(j, f) for f in fields]
         assert t.fused_dp_kernel is False and not j.fused_dp_kernel
         assert t.concat_width == j.concat_width
-        if t.name != "TICA_LapDropout":
-            with pytest.raises(NotImplementedError):
-                TF.init(t, seed=0, device="cpu")
+    for mt, dp, cross in (("ti", "lapacian_dropout", "double_stream"),
+                          ("tt", "lapacian_dropout", "double_stream"),
+                          ("it", "lapacian_dropout", "double_stream"),
+                          ("ii", "lapacian_dropout", "double_stream"),
+                          ("ti", "lapacian_dropout", "single_stream"),
+                          ("ti", "DPSGD", "double_stream"),
+                          ("ti", "NDP", "double_stream"),
+                          ("ti", "lapacian_dropout_equal_weight", "double_stream"),
+                          ("ti", "feature_all_lap", "double_stream")):
+        j = dataclasses.replace(JF.config_for(mt, dp, cross), bert_config=JB.BertConfig(**TINY))
+        t = dataclasses.replace(TF.config_for(mt, dp, cross), bert_config=TB.BertConfig(**TINY))
+        want = {path: leaf.shape for path, leaf in tree_items(
+            jax.tree_util.tree_map(np.asarray, JF.init(jax.random.PRNGKey(0), j)))}
+        got = {path: tuple(leaf.shape) for path, leaf in tree_items(TF.init(t, seed=0,
+                                                                            device="cpu"))}
+        assert got == want, t.name
     with pytest.raises(ValueError, match="post-fix"):
         TF.FusionConfig(prefix_eps_hat=True, fused_dp_kernel=True)
+    for bad in (dict(multimodal_type="tx"), dict(dp_mode="laplace")):
+        with pytest.raises(ValueError, match="unknown"):
+            TF.FusionConfig(**bad)
     assert TF.dp_param_predicate("DP") and not TF.dp_param_predicate("fc1/kernel")
 
 
