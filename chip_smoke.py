@@ -43,6 +43,15 @@ stochastic rounding on the card. Then drives the main paths at full width
    best checkpoint reloaded and served through ``predict``, a step
    profiled; TTCA and ITCA again at the bf16 default with the compact
    vocab; one forward and backward of TICA_DPSGD and of the PriGumbel head;
+6. DP-SGD: TICA_DPSGD through ``TrainAndTest(epochs=2).train_on(...,
+   dp_mode="DPSGD")`` at the API's bf16 default, which DP-SGD does not
+   take (f32, Poisson windows of 24 rows, the attention kernels in every
+   forward and in the last layer's backward), its sigma and launches
+   exact, frozen leaves bit-equal, an epoch under sync debug mode "error",
+   per-example gradients card against CPU and against batch-1 passes, a
+   step profiled; then ``ComparePrivateScheme().run()`` over files it
+   writes, the four schemes held to their launches, then skipped as
+   completed;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -280,6 +289,25 @@ def zoo_seq_lens(D):
     return seqs
 
 
+PAPER_TRAIN_ROWS = 2402  # the reference's training split: q = 8 / 2402
+
+
+def dpsgd_batches():
+    """The batches B the DP-SGD path's attention runs at, as
+    (windows, eval): its Poisson window at the API's default batch over the
+    smoke's N_TRAIN rows and over the paper's 2402 (forward and backward),
+    and its batched eval over N_EVAL rows, padded to whole batches (forward
+    only)."""
+    import inspect
+
+    from eeg_multimodal_torch.dp.dpsgd import window_size
+    from eeg_multimodal_torch.train.api import TrainAndTest
+
+    b = inspect.signature(TrainAndTest).parameters["batch_size"].default
+    windows = tuple(sorted({window_size(n, b / n) for n in (N_TRAIN, PAPER_TRAIN_ROWS)}))
+    return windows, -(-N_EVAL // b) * b
+
+
 def zoo_launches(mt, dp_mode, steps, layers):
     """The predicted kernel launches of one ``train_on`` epoch of ``steps``
     train steps and one batched eval forward, with the fused DP block: the
@@ -287,13 +315,17 @@ def zoo_launches(mt, dp_mode, steps, layers):
     backward through the encoders, the single-optimizer step one of each;
     each BERT stream launches ``layers`` attention kernels a forward or a
     backward, and the DP block one kernel a forward or a backward, where
-    the class has it (phase 1's backward reaches only ``DP``)."""
+    the class has it (phase 1's backward reaches only ``DP``). A DP-SGD
+    step runs the per-example forward and the metric forward over its
+    window, and a backward that stops at the last BERT layer: one
+    attention backward a step."""
     alternating = dp_mode == "lapacian_dropout"
-    forwards = (2 if alternating else 1) * steps + 1
+    forwards = (2 if alternating or dp_mode == "DPSGD" else 1) * steps + 1
     txt = mt.count("t")
     return {"dp_fwd": forwards if alternating else 0,
             "dp_bwd": 2 * steps if alternating else 0,
-            "attn_fwd": txt * layers * forwards, "attn_bwd": txt * layers * steps}
+            "attn_fwd": txt * layers * forwards,
+            "attn_bwd": txt * (1 if dp_mode == "DPSGD" else layers) * steps}
 
 
 def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~ 4 forwards"):
@@ -338,12 +370,17 @@ def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~
     return by_kernel
 
 
-def check_attention_kernels(torch, A, gen, dev, zoo_seqs):
+def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     """Attention kernels against their plain versions, at the main paths'
-    shapes (8, 12, 80, 64) and (8, 12, 512, 64), and (8, 12, S, 64) for
-    each S of ``zoo_seqs`` (the zoo phase's text lengths), in f32 and bf16,
-    and at smaller ones; returns the max errors, both dropout rates
-    together, as ``{(kernel, dtype, (B, H, S, D)): max |kernel - plain|}``."""
+    shapes (8, 12, 80, 64) and (8, 12, 512, 64), the DP-SGD path's
+    (B, 12, 80, 64) f32 for each B of ``dpsgd_bs`` (``dpsgd_batches``: the
+    windows at the smoke's and the paper's rows, and the batched eval),
+    and (8, 12, S, 64) for each S of ``zoo_seqs`` (the zoo phase's text
+    lengths), in f32 and bf16, and at smaller ones; at each DP-SGD window
+    also through autograd with an output gradient the kernels' 16-byte
+    loads cannot read, which ``vector_loadable`` copies.
+    Returns the max errors, both dropout rates together, as
+    ``{(kernel, dtype, (B, H, S, D)): max |kernel - plain|}``."""
     err = {}
     mask_seqs = sorted({80, 512} | set(zoo_seqs))
     for S in mask_seqs:  # the kernels' mask is keep_mask_plain's, bit for bit
@@ -354,9 +391,11 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs):
     print(f"  attn_dropout_mask equals keep_mask_plain at S = {mask_seqs}")
     cases = [(2, 3, 80, 64, torch.float32), (8, 12, 80, 64, torch.float32),
              (8, 12, 128, 64, torch.float32), (8, 12, 512, 64, torch.float32),
-             (1, 2, 512, 128, torch.float32),
-             (2, 3, 80, 64, torch.bfloat16), (8, 12, 80, 64, torch.bfloat16),
-             (8, 12, 512, 64, torch.bfloat16)]
+             (1, 2, 512, 128, torch.float32), (2, 3, 80, 64, torch.bfloat16),
+             (8, 12, 80, 64, torch.bfloat16), (8, 12, 512, 64, torch.bfloat16)]
+    windows, eval_b = dpsgd_bs
+    cases += [(B, 12, 80, 64, torch.float32) for B in windows + (eval_b,)
+              if (B, 12, 80, 64, torch.float32) not in cases]
     cases += [(8, 12, S, 64, dtype) for S in sorted(zoo_seqs)
               for dtype in (torch.float32, torch.bfloat16)
               if (8, 12, S, 64, dtype) not in cases]
@@ -404,6 +443,15 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs):
                                        leaves, dout)
             check(all(torch.equal(a, g) for a, g in zip(auto, grads)),
                   "fused_attention's autograd gradients differ from attn_bwd's")
+            if B in windows:  # an output gradient 4 bytes off the 16-byte grid
+                odd = torch.empty(dout.numel() + 1, dtype=dtype, device=dev)[1:].view_as(dout)
+                odd.copy_(dout)
+                check(not A._aligned(odd) and A.vector_loadable(odd) is not odd,
+                      "the misaligned output gradient was not copied")
+                auto = torch.autograd.grad(A.fused_attention(*leaves, bias, seed, rate),
+                                           leaves, odd)
+                check(all(torch.equal(a, g) for a, g in zip(auto, grads)),
+                      "a misaligned output gradient gives other gradients")
             print(f"  {(B, H, S, D)} {str(dtype)[6:]} p={rate}: max|out - plain| {e_fwd:.3g}, "
                   f"max|grad - plain| {e_bwd:.3g}")
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
@@ -810,6 +858,300 @@ def run_zoo(torch, dev, rng, gen, all_kernels, layers, steps, step_fn):
     torch.cuda.empty_cache()
 
 
+# the accountant's sigma at the smoke's privacy setup (q = 1/8, 16 steps,
+# delta = 1/8, eps = 0.1), as the JAX package's accountant gives it
+DPSGD_SIGMA = 1.9441650390624998
+
+
+def run_dpsgd(torch, dev, rng, all_kernels, layers, steps):
+    """Main path 6, DP-SGD: ``TrainAndTest(epochs=2).train_on(...,
+    dp_mode="DPSGD")`` at full width (TICA_DPSGD, F = 1536, S = 80, 64 / 32
+    rows, batch 8, eps 0.1) at the API's bf16 default, which DP-SGD must
+    not take: sigma, q, delta, steps and window; launches (f32 only, no DP
+    kernel); frozen leaves bit-equal to the init, every trainable leaf
+    moved; records with sigma and delta. Then one more epoch under
+    ``torch.cuda.set_sync_debug_mode("error")``; the per-example gradients
+    on 4 rows (dropout off) card against CPU, and against four batch-1
+    passes, and their clipped, weighted aggregate card against CPU; one
+    steady-state step profiled, with the peak memory of a step."""
+    import contextlib
+    import io
+
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.dp import dpsgd
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train import metrics as M
+    from eeg_multimodal_torch.train.api import TrainAndTest
+    from eeg_multimodal_torch.train.dpsgd_trainer import DPSGDTrainer
+    from eeg_multimodal_torch.utils.seeding import DEFAULT_SEED, derive_seed, generator
+    from eeg_multimodal_torch.utils.trees import tree_items, tree_map
+
+    phase("main path 6: DP-SGD, TICA_DPSGD through TrainAndTest(epochs=2).train_on("
+          "dp_mode='DPSGD'), full width, S = 80, eps 0.1")
+    train, test = zoo_rows(D, rng, "ti", N_TRAIN), zoo_rows(D, rng, "ti", N_EVAL)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dpsgd_")
+    api = TrainAndTest(epochs=2, artifacts_root=root)
+    check(api.compute_dtype == "bfloat16", f"TrainAndTest defaults to {api.compute_dtype}")
+    for k in all_kernels:
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    echo = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(echo):
+        res = api.train_on(train, test, "DPMLD", "DPSGD/", "ti", "DPSGD", epsilon=EPS)
+    wall = time.perf_counter() - t0
+    launches = {k.name: dict(k.by_dtype) for k in all_kernels}
+    tr = api.trainer
+    line = [ln for ln in echo.getvalue().splitlines() if ln.startswith("DP-SGD:")]
+    print(f"  {line[0] if line else 'no DP-SGD echo line'}")
+    print_rows(res["history"], steps)
+    print(f"  train_on {wall:.2f} s (accountant, init, 2 epochs); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches by dtype {launches}")
+    check(isinstance(tr, DPSGDTrainer), "train_on did not take the DP-SGD trainer")
+    check(line == [f"DP-SGD: sigma={DPSGD_SIGMA:.3f} q=0.12500 delta=0.12500 steps/epoch={steps} "
+                   f"(target eps={EPS})"], f"the echo line {line}")
+    check(res["sigma"] == DPSGD_SIGMA and res["delta"] == 1 / 8,
+          f"sigma {res['sigma']!r}, delta {res['delta']!r}")
+    q = tr.dp_cfg.batch_size / N_TRAIN
+    window = dpsgd.window_size(N_TRAIN, q)
+    check(q == 0.125 and window == 24, f"q {q}, window {window}")
+    windows, eval_b = dpsgd_batches()  # the B the attention checks held
+    check(window in windows, f"window {window} outside the attention checks' {windows}")
+    check(len(res["history"]) == 2 and all(
+        math.isfinite(r[k]) for r in res["history"] for k in ("train_loss", "test_loss", "f1")),
+        "DP-SGD: non-finite loss")
+    per_epoch = zoo_launches("ti", "DPSGD", steps, layers)
+    want = {k: ({"float32": 2 * n} if n else {}) for k, n in per_epoch.items()}
+    check(launches == want, f"DP-SGD launches {launches}, expected {want}")
+    check(tr.eval_steps.compute_dtype == torch.float32
+          and all(t.dtype == torch.float32 for _, t in tree_items(tr.params)), "not f32")
+    init = dict(tree_items(fusion.init(tr.fusion_cfg, derive_seed(DEFAULT_SEED, "init"), dev)))
+    n_train = 0
+    for path, t in tree_items(tr.params):
+        same = torch.equal(t, init[path])
+        check(same != tr.trainable(path), f"{path}: {'did not move' if same else 'moved'}")
+        n_train += t.numel() if tr.trainable(path) else 0
+    del init
+    logs = os.path.join(root, "logs", "DPMLD", "DPSGD")
+    recs = [json.loads(ln) for ln in open(os.path.join(logs, "metrics.jsonl"))]
+    check(len(recs) == 2 and all(r["sigma"] == DPSGD_SIGMA and r["delta"] == 1 / 8
+                                 for r in recs), "the records lack sigma and delta")
+    check(open(os.path.join(logs, "whole_record.txt")).read().count("Epochs:") == 2,
+          "whole_record.txt does not hold two epochs")
+    print(f"  {n_train} trainable parameters moved, every frozen leaf bit-equal to the init; "
+          "records carry sigma and delta")
+
+    phase("main path 6: one more DP-SGD epoch (train and eval) under "
+          "torch.cuda.set_sync_debug_mode('error')")
+    train_t, test_t = D.truncate_pair(train, test)
+    check(train_t.eeg_input.shape[1] == 80, f"S = {train_t.eeg_input.shape[1]}, not 80")
+    data, test_dev = train_t.to_device(dev), test_t.to_device(dev)
+    sigma, C = res["sigma"], tr.dp_cfg.max_grad_norm
+    step = dpsgd.make_dpsgd_step(tr.example_losses, tr.trainable, tr.optimizer, sigma, C,
+                                 tr.dp_cfg.batch_size)
+    state = [tr.optimizer.init(dpsgd.trainable_leaves(tr.params, tr.trainable))]
+    gen6 = generator(derive_seed(DEFAULT_SEED, "dpsgd_epoch", 2), dev)
+    eidx, ew = D.epoch_indices(N_EVAL, tr.dp_cfg.batch_size, False, device=dev)
+    check(eidx.numel() == eval_b, f"the eval's {eidx.numel()} rows, not the checked {eval_b}")
+    for k in all_kernels:
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync in the epoch raises
+    try:
+        state[0], loss, acc = tr.train_epoch(tr.params, state[0], data, N_TRAIN, q, window,
+                                             steps, step, gen6)
+        te = tr.eval_steps.eval_epoch(tr.params, test_dev, eidx, ew, 0.0, None)
+        row = torch.stack([loss, acc, te[0], te[1], M.f1(te[3], te[2], te[5])])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k.name: k.launches for k in all_kernels}
+    check(got == per_epoch, f"epoch launches {got}, expected {per_epoch}")
+    check(all(math.isfinite(x) for x in row.tolist()), "non-finite epoch row")
+    print(f"  no host sync; row {[round(x, 4) for x in row.tolist()]}; launches {got}")
+
+    phase("per-example gradients of the trainable subtree, 4 rows, dropout off: card "
+          "(attention kernels) against the CPU (plain versions) and against four batch-1 "
+          "passes")
+    batch = D.gather_batch(data, torch.arange(4, device=dev))
+
+    def losses_fn(b):
+        def losses(tree):
+            logits = fusion.apply(tree, b, tr.fusion_cfg, 0.0, True, None, True)
+            return M.cross_entropy(logits, b["labels"])
+        return losses
+
+    paths = [p for p, _ in tree_items(tr.params) if tr.trainable(p)]
+    for k in all_kernels:
+        k.reset()
+    card = dpsgd.per_example_grads(losses_fn(batch), tr.params, tr.trainable, 4)
+    got = {k.name: k.launches for k in all_kernels}
+    check(got == {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": layers, "attn_bwd": 1},
+          f"per-example launches {got}: not one batched forward and one backward")
+    cpu_params = tree_map(lambda t: t.cpu(), tr.params)
+    cpu_batch = tree_map(lambda t: t.cpu(), batch)
+    cpu = dpsgd.per_example_grads(losses_fn(cpu_batch), cpu_params, tr.trainable, 4)
+    # each leaf is held to a fraction of its own largest entry, floored at
+    # a fraction of the whole gradient's for the key biases, whose gradients
+    # are 0 but for rounding (softmax does not move with a shift of every
+    # key's score)
+    scale = max(float(c.abs().max()) for c in cpu)
+
+    def cpu_atol(c):
+        return max(1e-5 * float(c.abs().max()), 1e-6 * scale)
+
+    e_cpu, worst = 0.0, (0.0, "")
+    for path, g, c in zip(paths, card, cpu):
+        atol = cpu_atol(c)
+        torch.testing.assert_close(g.cpu(), c, rtol=2e-3, atol=atol, msg=lambda m: f"{path}: {m}")
+        e = float((g.cpu() - c).abs().max())
+        e_cpu, worst = max(e_cpu, e), max(worst, (e / atol, path))
+    last = f"bert/layers/{tr.fusion_cfg.bert_cfg().num_layers - 1}/attn"
+    typical = {}
+    for path in (f"{last}/query/kernel", f"{last}/key/kernel"):
+        c = cpu[paths.index(path)]
+        typical[path] = (cpu_atol(c), float(c.abs().median()))
+        check(typical[path][0] < typical[path][1],
+              f"{path}: atol {typical[path][0]:.3g} not below its median entry "
+              f"{typical[path][1]:.3g}")
+    check(bool((card[paths.index("fc1/kernel")].reshape(4, -1).abs().amax(1) > 0).all()),
+          "a row without a gradient")
+    e_one = 0.0
+    for b in range(4):
+        one = dpsgd.per_example_grads(
+            losses_fn(D.gather_batch(batch, torch.tensor([b], device=dev))), tr.params,
+            tr.trainable, 1)
+        for path, g, o in zip(paths, card, one):
+            torch.testing.assert_close(g[b:b + 1], o, rtol=1e-4, atol=1e-6 * scale,
+                                       msg=lambda m: f"row {b} {path}: {m}")
+            e_one = max(e_one, float((g[b:b + 1] - o).abs().max()))
+    w = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    noise = [torch.randn(g.shape[1:], generator=gen6, device=dev) for g in card]
+    agg = dpsgd.noisy_aggregate(dpsgd.clip_per_example(card, C), w, sigma, C, 8, noise=noise)
+    agg_cpu = dpsgd.noisy_aggregate(dpsgd.clip_per_example(cpu, C), w.cpu(), sigma, C, 8,
+                                    noise=[z.cpu() for z in noise])
+    # the noise dwarfs the clipped sum: hold the sum to a fraction of its own
+    # largest entry
+    clean = dpsgd.noisy_aggregate(dpsgd.clip_per_example(cpu, C), w.cpu(), sigma, C, 8,
+                                  noise=[torch.zeros_like(z, device="cpu") for z in noise])
+    agg_atol = 1e-5 * max(float(c.abs().max()) for c in clean)
+    e_agg = max(float((a.cpu() - c).abs().max()) for a, c in zip(agg, agg_cpu))
+    for a, c in zip(agg, agg_cpu):
+        torch.testing.assert_close(a.cpu(), c, rtol=2e-3, atol=agg_atol)
+    print(f"  {len(paths)} trainable leaves; max|card - cpu| {e_cpu:.3g} (rtol 2e-3, atol "
+          f"1e-5 of the leaf's largest entry, at least 1e-6 of the largest entry {scale:.3g}; "
+          f"the closest leaf at {worst[0]:.3g} of its atol, {worst[1]}); (atol, median "
+          f"|entry|) of the last layer's query and key kernels "
+          + ", ".join(f"({a:.3g}, {m:.3g})" for a, m in typical.values())
+          + f"; max|batched - batch-1 pass| {e_one:.3g} (rtol 1e-4, atol 1e-6 of the largest "
+          f"entry); clipped aggregate with weights [1, 1, 1, 0], the noise handed in: "
+          f"max|card - cpu| {e_agg:.3g} (rtol 2e-3, atol {agg_atol:.3g}: 1e-5 of the clipped "
+          f"sum's largest entry)")
+    del card, cpu, cpu_params, agg, agg_cpu, clean, noise
+
+    phase("profile: one steady-state DP-SGD step (a window of 24 rows: per-example forward, "
+          "backward to the last BERT layer, clip, noise, Adam, metric forward)")
+
+    def dp_step():
+        state[0] = tr.train_epoch(tr.params, state[0], data, N_TRAIN, q, window, 1, step,
+                                  gen6)[0]
+
+    dp_step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dp_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  peak memory of a step above the live params and moments {peak / 2**30:.3f} GiB; "
+          f"the per-example gradients alone {n_train * window * 4 / 2**30:.3f} GiB "
+          f"({n_train} trainable x {window} rows x 4 bytes)")
+    fwd = forward_matmul_flops(window, 80, dec_layers=0, F=1536)
+    last = forward_matmul_flops(window, 80, layers=1, dec_layers=0, F=1536)
+    by_kernel = profile_step(torch, dp_step, "DP-SGD step, S = 80, f32", 2 * fwd + 2 * last,
+                             work="2 forwards + the last layer's backward")
+    if by_kernel:
+        tc_us, simt_us = gemm_split(by_kernel)
+        print(f"  GEMMs on the tensor cores {tc_us / 1e3:.2f} ms, on the CUDA cores "
+              f"{simt_us / 1e3:.2f} ms")
+    api.trainer = None
+    del tr, step, state, data, test_dev
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def run_drivers(torch, dev, rng, all_kernels, layers, steps):
+    """``ComparePrivateScheme(python_job=...).run()``: the four schemes
+    through ``TrainAndTest.train`` from the reference's files (64 / 32 rows
+    written by ``write_split``), one epoch each at the API's defaults (bf16,
+    composed DP; DP-SGD in f32), each held to ``zoo_launches``; every
+    scheme's whole record written; then ``run(skip_completed=True)``
+    skips exactly the schemes that wrote a best record (the three of
+    ``Trainer``, whose F1 threshold is set below any F1, and DP-SGD if an
+    epoch beat its fixed 0.5) and trains the others again."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.experiments.drivers import ComparePrivateScheme
+    from eeg_multimodal_torch.train.api import TrainAndTest
+
+    phase("drivers: ComparePrivateScheme().run() through TrainAndTest.train, the four "
+          "schemes, one epoch each, from the reference's files (64 / 32 rows)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    write_split(root, "train", zoo_rows(D, rng, "ti", N_TRAIN))
+    write_split(root, "test", zoo_rows(D, rng, "ti", N_EVAL))
+
+    class DriverJob(TrainAndTest):
+        """``TrainAndTest`` that counts each scheme's launches, with
+        ``Trainer``'s F1 threshold below any F1, so that its runs write
+        their best records (DP-SGD's threshold is not a setting)."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.launches = {}
+
+        def run_configs(self, fusion_cfg, train_cfg):
+            return fusion_cfg, dataclasses.replace(train_cfg, f1_best_init=-1.0)
+
+        def train(self, **cfg):
+            for k in all_kernels:
+                k.reset()
+            t0 = time.perf_counter()
+            out = super().train(**cfg)
+            self.launches[cfg["dp_mode"]] = ({k.name: dict(k.by_dtype) for k in all_kernels},
+                                             time.perf_counter() - t0)
+            return out
+
+    job = DriverJob(epochs=1, data_root=root, echo=False)
+    driver = ComparePrivateScheme(python_job=job)
+    res = driver.run()
+    for cfg in driver.configs():
+        scheme = cfg["dp_mode"]
+        got, wall = job.launches[scheme]
+        dtype = "float32" if scheme == "DPSGD" else "bfloat16"
+        want = {k: ({dtype: n} if n and k.startswith("attn") else {})
+                for k, n in zoo_launches("ti", scheme, steps, layers).items()}
+        row = res[cfg["path_suffix"]]["history"][0]
+        print(f"  {scheme}: train loss {row['train_loss']:.4f}, test loss "
+              f"{row['test_loss']:.4f}, f1 {row['f1']:.3f}; train {wall:.2f} s; launches {got}")
+        check(got == want, f"{scheme}: launches {got}, expected {want}")
+        check(all(math.isfinite(row[k]) for k in ("train_loss", "test_loss", "f1")),
+              f"{scheme}: non-finite loss")
+        check(os.path.exists(os.path.join(root, "logs", "compare_private_scheme", scheme,
+                                          "whole_record.txt")), f"{scheme}: no whole record")
+    done = {c["path_suffix"] for c in driver.configs() if os.path.exists(
+        os.path.join(root, "logs", "compare_private_scheme", c["path_suffix"], "best_record.txt"))}
+    check({"lapacian_dropout/", "lapacian_dropout_equal_weight/", "NDP/"} <= done,
+          f"best records only for {sorted(done)}")
+    again = driver.run(skip_completed=True)
+    skipped = {k for k, v in again.items() if v == "skipped (completed)"}
+    check(skipped == done and all(isinstance(again[k], dict) for k in set(again) - done),
+          f"skip_completed: {again}, with best records for {sorted(done)}")
+    print(f"  every scheme wrote its records; run(skip_completed=True) skipped the "
+          f"{len(done)} with a best record ({sorted(done)}) and trained the others again")
+    job.trainer = None
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
 # cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
 # *_simt_sgemm_*, *_f32f32_*_ffma_*, gemv and gemmSN its CUDA-core ones
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
@@ -942,7 +1284,7 @@ def main():
 
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
-    err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D)))
+    err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D), dpsgd_batches()))
     print("  G = 2 max errors: " + ", ".join(
         f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(torch, A, gen,
                                                                             dev).items()))
@@ -1430,6 +1772,8 @@ def main():
 
     del trainer, train_dev, test_dev, bench, api3, tr3, train_b_dev, test_b_dev
     run_zoo(torch, dev, rng, gen, all_kernels, layers, steps, step_fn)
+    run_dpsgd(torch, dev, rng, all_kernels, layers, steps)
+    run_drivers(torch, dev, rng, all_kernels, layers, steps)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)

@@ -84,17 +84,32 @@ def linear(params, x):
     """``x @ kernel + bias`` in the promoted dtype of x and the kernel,
     rounded once to x's dtype. A bf16 GEMM accumulates in f32 and adds the
     bias before that rounding (cuBLAS's bias epilogue, or beta = 1 on the
-    bias), as ``preferred_element_type=float32`` does there."""
+    bias), as ``preferred_element_type=float32`` does there.
+
+    A per-example weight, a (B, in, out) kernel and a (B, out) bias, takes
+    row b of x, (B, in) or (B, S, in), through kernel b (one batched GEMM):
+    the DP-SGD step's replicated leaves (``dp/dpsgd.py``)."""
     dt = torch.promote_types(x.dtype, params["kernel"].dtype)
-    return F.linear(x.to(dt), params["kernel"].to(dt).t(), params["bias"].to(dt)).to(x.dtype)
+    kernel, bias = params["kernel"].to(dt), params["bias"].to(dt)
+    if kernel.dim() == 3:
+        x3 = x.to(dt) if x.dim() == 3 else x.to(dt).unsqueeze(1)
+        y = torch.baddbmm(bias.unsqueeze(1), x3, kernel)
+        return (y if x.dim() == 3 else y.squeeze(1)).to(x.dtype)
+    return F.linear(x.to(dt), kernel.t(), bias).to(x.dtype)
 
 
 def layer_norm(params, x, eps: float = 1e-5):
     """torch LayerNorm (biased variance over the last dim), computed in f32
-    and cast back to x's dtype."""
+    and cast back to x's dtype. A per-example (B, E) scale and bias scale
+    and shift row b of x, (B, ..., E), by their row b."""
     f32 = torch.float32
-    y = F.layer_norm(x.to(f32), x.shape[-1:], params["scale"].to(f32), params["bias"].to(f32),
-                     eps)
+    scale, bias = params["scale"].to(f32), params["bias"].to(f32)
+    if scale.dim() == 1:
+        y = F.layer_norm(x.to(f32), x.shape[-1:], scale, bias, eps)
+    else:
+        rows = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        y = F.layer_norm(x.to(f32), x.shape[-1:], None, None, eps)
+        y = y * scale.view(rows) + bias.view(rows)
     return y.to(x.dtype)
 
 

@@ -10,11 +10,11 @@ on-disk layout,
   models/custom/<train_type>/<path_suffix>best_f1.pickle
   logs/<train_type>/<path_suffix>{whole,best}_record.txt
 
-with the port's trainer underneath, on the card unless ``device="cpu"``,
+with the port's trainers underneath, on the card unless ``device="cpu"``,
 and ``predict``, which evaluates a trained checkpoint. Every class of the
-model zoo trains and predicts but ``dp_mode="DPSGD"``, whose DP-SGD
-trainer the port does not have yet: ``train_on`` raises
-``NotImplementedError`` naming its ROADMAP item.
+model zoo trains and predicts: ``dp_mode="DPSGD"`` through the DP-SGD
+trainer (``train/dpsgd_trainer.py``), in f32 whatever ``compute_dtype``
+says and over the full vocabulary, every other mode through ``Trainer``.
 """
 from __future__ import annotations
 
@@ -26,12 +26,14 @@ import numpy as np
 
 from ..data import datasets as D
 from ..data.compact_vocab import build_compact_vocab, remap_pairing
+from ..dp.dpsgd import DPSGDConfig
 from ..models import fusion
 from ..models.bert import BertConfig
 from ..utils.device import resolve_device
 from ..utils.seeding import DEFAULT_SEED, generator
 from . import metrics as M
 from .checkpoint import load_torch_checkpoint
+from .dpsgd_trainer import DPSGDTrainer
 from .trainer import StepFunctions, TrainConfig, Trainer
 
 
@@ -48,8 +50,9 @@ class TrainAndTest:
 
     ``compute_dtype`` keeps the JAX package's default, "bfloat16" (the
     forward on a bf16 copy of f32 master params); "float32" is the
-    reference's own precision. ``device`` is the card unless "cpu". After
-    ``train_on`` the trainer of the run stays in ``self.trainer``.
+    reference's own precision (and DP-SGD's, whatever this says).
+    ``device`` is the card unless "cpu". After ``train_on`` the trainer of
+    the run stays in ``self.trainer``.
     """
 
     def __init__(
@@ -76,7 +79,7 @@ class TrainAndTest:
         # logs and checkpoints go under artifacts_root, by default data_root
         self.artifacts_root = artifacts_root or data_root
         self.device = resolve_device(device)
-        self.trainer: Optional[Trainer] = None
+        self.trainer = None  # a Trainer, or a DPSGDTrainer
 
     # -- dataset resolution (base_train.py:77-125) ---------------------------
     def _embedding_path(self, modal: str, repr_: str, model: str, coef: str, split: str):
@@ -144,18 +147,21 @@ class TrainAndTest:
         or the other (api.py:118-228 of the JAX package). A setting of the
         run's ``FusionConfig`` or ``TrainConfig`` that these arguments do
         not reach is set by overriding :meth:`run_configs`.
+
+        ``dp_mode="DPSGD"`` trains through ``DPSGDTrainer`` with
+        ``DPSGDConfig(epsilon, epochs, batch_size, learning_rate)``, in f32
+        over the full vocabulary, the compact one skipped (its trainable
+        subtree leaves the word table frozen; api.py:165, :201-215 there).
+        It takes no field of the ``TrainConfig``: the F1 an epoch must beat
+        to be the best stays the JAX trainer's constant 0.5.
         """
-        if dp_mode == "DPSGD":
-            raise NotImplementedError(
-                "dp_mode='DPSGD' trains through the DP-SGD trainer, which the port does not "
-                "have yet (ROADMAP.md, queue 1, item 11)")
         if compact_vocab and vocab is not None:
             raise ValueError("pass either compact_vocab=True or a prebuilt vocab")
         if auto_truncate:
             train_data, test_data = D.truncate_pair(train_data, test_data)
 
         bert_params = self.bert_params
-        if compact_vocab and "t" in multimodal_type:
+        if compact_vocab and dp_mode != "DPSGD" and "t" in multimodal_type:
             base_cfg = bert_config or BertConfig.for_coef(eeg_model_coef)
             streams = []
             for d in (train_data, test_data):
@@ -182,6 +188,13 @@ class TrainAndTest:
         model_path = os.path.join(self.artifacts_root, "models", "custom", train_type,
                                   path_suffix, "best_f1.pickle")
         log_path = os.path.join(self.artifacts_root, "logs", train_type, path_suffix)
+        if dp_mode == "DPSGD":
+            self.trainer = DPSGDTrainer(
+                fc, DPSGDConfig(target_epsilon=epsilon, epochs=self.epochs,
+                                batch_size=self.batch_size, learning_rate=self.learning_rate),
+                bert_params=self.bert_params, device=self.device)
+            return self.trainer.fit(train_data, test_data, log_path=log_path,
+                                    model_path=model_path, echo=self.echo)
         self.trainer = Trainer(fc, tc, bert_params=bert_params, device=self.device,
                                vocab=vocab)
         return self.trainer.fit(train_data, test_data, epsilon, log_path=log_path,
@@ -191,7 +204,8 @@ class TrainAndTest:
         """The ``(FusionConfig, TrainConfig)`` a ``train_on`` run trains
         with, as built from its arguments and this object's. A subclass
         overrides it to change a field the API does not take, e.g. the DP
-        block's ``fused_dp_kernel`` or ``TrainConfig.f1_best_init``."""
+        block's ``fused_dp_kernel`` or ``TrainConfig.f1_best_init``. The
+        DP-SGD trainer takes only the ``FusionConfig``."""
         return fusion_cfg, train_cfg
 
     # -- inference on a trained checkpoint (api.py:230-327 there) -------------

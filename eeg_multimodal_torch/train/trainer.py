@@ -8,9 +8,11 @@ learned DP block (``lapacian_dropout``):
 1. forward with hard=False, the gradient w.r.t. ``DP`` only, Adam on ``DP``;
 2. forward with hard=True, the gradient w.r.t. every other parameter, Adam.
 
-The other classes (NDP, DPSGD, equal weight, ``feature_all_lap``) have no
-``DP`` leaf and take step 2 alone over every parameter, the fast modes
-ignored (base_train.py:436-553; trainer.py:321-340 there).
+The other classes (NDP, equal weight, ``feature_all_lap``) have no ``DP``
+leaf and take step 2 alone over every parameter, the fast modes ignored
+(base_train.py:436-553; trainer.py:321-340 there); so does TICA_DPSGD's
+class given to this trainer, which ``TrainAndTest`` trains under DP-SGD
+instead (``train/dpsgd_trainer.py``).
 
 Then a stochastic eval epoch (hard=True, dropout off, DP noise on, each
 batch under ``n_eval`` noise draws) and F1. PyTorch runs eagerly: an epoch is
@@ -235,8 +237,8 @@ class StepFunctions:
         returns (dp_os, model_os, loss, acc) with phase 2's loss and
         accuracy. Without a ``DP`` leaf the step is phase 2 alone, over
         every parameter, drawing from phase 2's generator (the
-        single-optimizer regimes: NDP, DPSGD, equal weight,
-        ``feature_all_lap``; trainer.py:321-340 there).
+        single-optimizer regimes: NDP, equal weight, ``feature_all_lap``,
+        and TICA_DPSGD's class outside DP-SGD; trainer.py:321-340 there).
 
         ``gen``: the step's generator, or a pair, phase 1's and phase 2's
         (:meth:`phase_generators`); with ``share_phase_dropout`` phase 2

@@ -47,7 +47,9 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_every_port_module_loads_no_jax():
     mods = port_modules()
     assert {"eeg_multimodal_torch.ops.dp_fused", "eeg_multimodal_torch.ops.attention",
-            "eeg_multimodal_torch.train.api"} <= set(mods)
+            "eeg_multimodal_torch.train.api", "eeg_multimodal_torch.dp.dpsgd",
+            "eeg_multimodal_torch.train.dpsgd_trainer",
+            "eeg_multimodal_torch.experiments.drivers"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
