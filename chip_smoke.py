@@ -10,8 +10,10 @@ hook), and holds each against its
 plain PyTorch version: the DP forward bit for bit where the card's math
 library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
 attention mask bit for bit against ``keep_mask_plain``, also with a seed
-vector of G = 2 over 2B rows (equal to two G = 1 calls, bit for bit, the
-forward and backward too); and a 2-layer BERT at S = 512 on the card
+vector of G = 2 over 2B rows and of G = 5 over the sweep's 5 members'
+rows (equal to G calls of G = 1, bit for bit, the forward and backward
+too), the DP kernels with a member axis (equal to M single calls and their
+plain versions, bit for bit); and a 2-layer BERT at S = 512 on the card
 against the CPU. Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
@@ -52,6 +54,17 @@ stochastic rounding on the card. Then drives the main paths at full width
    step profiled; then ``ComparePrivateScheme().run()`` over files it
    writes, the four schemes held to their launches, then skipped as
    completed;
+7. the batched sweep: ``SweepRunner`` over ``privacy_utility_frontier()``
+   (5 members, epsilon 0.1 to 10), the flagship with fused DP in f32, two
+   epochs held to path 1's launches (the DP kernels with a member axis,
+   attention with a seed per member), one more epoch under sync debug mode
+   "error", a member step against single-member steps from the same
+   weights, the step profiled in turns against five single-member steps,
+   the bench configuration as a 5-member sweep; then the legacy drivers:
+   ``EpsExperiment.run_all_vmapped`` (20 members in two chunks of 10),
+   ``extract_feawei``, ``dp_inits.feawei`` and ``run_index``,
+   ``MetricTrainer.fit``, ``PriGumbelPretrainer.pretrain`` and
+   ``AlphaSweep.run``, each held to the launches predicted from the code;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -210,13 +223,16 @@ def _bound(nbytes, ops, ops_per_s):
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
-def dp_bound_ms(name, B, F):
+def dp_bound_ms(name, B, F, M=1):
     """Least time on the card: the larger of bytes over HBM rate (each input
-    read once, each output written once) and operations over f32 rate."""
+    read once, each output written once) and operations over f32 rate. B
+    rows in all, M members (each with its DP row, seed and, for M > 1, its
+    e^eps)."""
+    per_member = 8 + (4 if M > 1 else 0)
     if name == "dp_fwd":  # read f, dp, seed; write out
-        nbytes = (2 * B * F + F) * 4 + 8
+        nbytes = (2 * B * F + M * F) * 4 + M * per_member
     else:  # read f, g, dp, seed; write df, dDP
-        nbytes = (3 * B * F + 2 * F) * 4 + 8
+        nbytes = (3 * B * F + 2 * M * F) * 4 + M * per_member
     return _bound(nbytes, OPS_PER_ELEM[name] * B * F, F32_OPS_PER_S)
 
 
@@ -466,34 +482,38 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     return err
 
 
-def check_grouped_attention(torch, A, gen, dev):
-    """The attention kernels with a seed vector of G = 2 over 2B rows, as the
-    paired phase encode's forward calls them: the mask kernel at B = 8 per
-    half, S = 80 and 512, equals two G = 1 calls and ``keep_mask_plain``,
-    bit for bit; forward and backward at (16, 12, 80, 64), f32 and bf16,
-    p = 0.1, against their plain versions with that mask, and equal to two
-    G = 1 calls over the halves, bit for bit. Returns the max errors as
-    ``{(kernel, dtype): max |kernel - plain|}``."""
-    seeds = torch.tensor([2 ** 40 + 3, 17], dtype=torch.int64, device=dev)
-    for S in (80, 512):
-        both = A.attn_dropout_mask(seeds, 16, 12, S, ATTN_DROP)
-        halves = torch.cat([A.attn_dropout_mask(seeds[i:i + 1], 8, 12, S, ATTN_DROP)
-                            for i in range(2)])
-        check(torch.equal(both, halves), f"the G = 2 mask differs from two G = 1 masks at S = {S}")
-        check(torch.equal(both.bool(), A.keep_mask_plain(seeds.tolist(), 16, 12, S, ATTN_DROP,
+def check_grouped_attention(torch, A, gen, dev, G=2):
+    """The attention kernels with a seed vector of G seeds over G groups of
+    8 rows: G = 2 as the paired phase encode's forward calls them, G = 5 as
+    the 5-member sweep's. The mask kernel at S = 80 and 512 (G = 2) or 80
+    equals G calls of G = 1 and ``keep_mask_plain``, bit for bit; forward
+    and backward at (8 G, 12, 80, 64), f32 and bf16, p = 0.1, against their
+    plain versions with that mask, and equal to G calls of G = 1 over the
+    groups, bit for bit. Returns the max errors as ``{(kernel, dtype): max
+    |kernel - plain|}``."""
+    seeds = torch.tensor([2 ** 40 + 3, 17, 5, 2 ** 33 + 1, 99][:G], dtype=torch.int64,
+                         device=dev)
+    B, H, S, D = 8 * G, 12, 80, 64
+    groups = [slice(i * 8, (i + 1) * 8) for i in range(G)]
+    for S_ in ((80, 512) if G == 2 else (80,)):
+        both = A.attn_dropout_mask(seeds, B, H, S_, ATTN_DROP)
+        parts = torch.cat([A.attn_dropout_mask(seeds[i:i + 1], 8, H, S_, ATTN_DROP)
+                           for i in range(G)])
+        check(torch.equal(both, parts),
+              f"the G = {G} mask differs from {G} G = 1 masks at S = {S_}")
+        check(torch.equal(both.bool(), A.keep_mask_plain(seeds.tolist(), B, H, S_, ATTN_DROP,
                                                          dev)),
-              f"the G = 2 mask differs from keep_mask_plain at S = {S}")
-    print("  G = 2 masks at (2 x 8, 12, 80) and (2 x 8, 12, 512) equal two G = 1 calls and "
-          "keep_mask_plain, bit for bit")
+              f"the G = {G} mask differs from keep_mask_plain at S = {S_}")
+    print(f"  G = {G} masks at ({G} x 8, 12, S) equal {G} G = 1 calls and keep_mask_plain, "
+          "bit for bit")
     err = {}
-    B, H, S, D = 16, 12, 80, 64
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         bias = torch.zeros(B, S, device=dev)
         bias[:, VALID_TOKENS:] = NEG
-        bias[9, 20:] = NEG  # a shorter row in the second half
+        bias[9, 20:] = NEG  # a shorter row in the second group
         dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
         out, stats = A.attn_fwd(q, k, v, bias, seeds, ATTN_DROP)
         keep = A.attn_dropout_mask(seeds, B, H, S, ATTN_DROP).bool()
@@ -509,15 +529,68 @@ def check_grouped_attention(torch, A, gen, dev):
         err[("attn_bwd", name)] = max(float((g.float() - pg.float()).abs().max())
                                       for g, pg in zip(grads, plain_g))
         parts = []
-        for i, rows in enumerate((slice(0, B // 2), slice(B // 2, B))):
+        for i, rows in enumerate(groups):
             o, st = A.attn_fwd(q[rows], k[rows], v[rows], bias[rows], seeds[i:i + 1], ATTN_DROP)
             parts.append((o, *A.attn_bwd(q[rows], k[rows], v[rows], bias[rows], seeds[i:i + 1],
                                          ATTN_DROP, o, st, dout[rows])))
-        check(all(torch.equal(t, torch.cat(halves)) for t, *halves in zip((out, *grads), *parts)),
-              f"{name}: the G = 2 call differs from two G = 1 calls")
-        print(f"  {(B, H, S, D)} {name} G = 2, p = {ATTN_DROP}: max|out - plain| "
+        check(all(torch.equal(t, torch.cat(ps)) for t, *ps in zip((out, *grads), *parts)),
+              f"{name}: the G = {G} call differs from {G} G = 1 calls")
+        print(f"  {(B, H, S, D)} {name} G = {G}, p = {ATTN_DROP}: max|out - plain| "
               f"{err[('attn_fwd', name)]:.3g}, max|grad - plain| {err[('attn_bwd', name)]:.3g}; "
-              "forward and gradients equal two G = 1 calls, bit for bit")
+              f"forward and gradients equal {G} G = 1 calls, bit for bit")
+    return err
+
+
+# the sweep's epsilons (privacy_utility_frontier's default grid)
+MEMBER_EPS = (0.1, 1.0, 3.0, 5.0, 10.0)
+
+
+def check_member_dp(torch, K, gen, dev):
+    """The DP kernels with a member axis, at (M, B, F) = (5, 8, 2304), the
+    5-member sweep's, and (3, 5, 1001), groups of four crossing rows: M
+    members' rows (M B, F) with an (M, F) DP, an (M,) epsilon vector and M
+    seeds. The forward equals ``dp_block_plain`` with ``laplace_plain``'s
+    per-member noise and M single calls, bit for bit; the backward (df and
+    dDP (M, F)) equals M single calls bit for bit, and the plain backward
+    within the single model's tolerance (rtol 2e-3, atol 1e-4: the plain
+    sums go in another order); the autograd Function gives the kernels'
+    gradients. Returns the max errors against the plain versions."""
+    err = {"dp_fwd": 0.0, "dp_bwd": 0.0}
+    for M, B, F in ((5, 8, 2304), (3, 5, 1001)):
+        f = torch.randn(M * B, F, generator=gen, device=dev)
+        dp = torch.randn(M, F, generator=gen, device=dev)
+        g = torch.randn(M * B, F, generator=gen, device=dev)
+        f[B, [3, 10]] = f[B].min() - 1.0  # ties in the second member's first row
+        f[B, [7, 20]] = f[B].max() + 1.0
+        eps = MEMBER_EPS[:M]
+        eps_t = torch.tensor(eps, dtype=torch.float64, device=dev)
+        seeds = torch.tensor([1234 + 7 * m for m in range(M)], dtype=torch.int64, device=dev)
+        rows = [slice(m * B, (m + 1) * B) for m in range(M)]
+        out = K.dp_fwd(f, dp, eps_t, seeds)
+        plain = K.dp_block_plain(f, dp, eps_t, K.laplace_plain(seeds.tolist(), (M * B, F), dev))
+        singles = torch.cat([K.dp_fwd(f[r], dp[m:m + 1], eps[m], seeds[m:m + 1])
+                             for m, r in enumerate(rows)])
+        err["dp_fwd"] = max(err["dp_fwd"], float((out - plain).abs().max()))
+        check(torch.equal(out, plain), f"member dp_fwd at {(M, B, F)} differs from dp_block_plain")
+        check(torch.equal(out, singles), f"member dp_fwd at {(M, B, F)} differs from {M} calls")
+        df, ddp = K.dp_bwd(f, dp, eps_t, seeds, g)
+        one = [K.dp_bwd(f[r], dp[m:m + 1], eps[m], seeds[m:m + 1], g[r])
+               for m, r in enumerate(rows)]
+        check(torch.equal(df, torch.cat([d for d, _ in one]))
+              and torch.equal(ddp, torch.cat([p for _, p in one])),
+              f"member dp_bwd at {(M, B, F)} differs from {M} calls")
+        df_p, ddp_p = K.dp_block_bwd_plain(f, dp, eps_t,
+                                           K.laplace_plain(seeds.tolist(), (M * B, F), dev), g)
+        torch.testing.assert_close(df, df_p, rtol=2e-3, atol=1e-4)
+        torch.testing.assert_close(ddp, ddp_p, rtol=2e-3, atol=1e-4)
+        err["dp_bwd"] = max(err["dp_bwd"], float((df - df_p).abs().max()),
+                            float((ddp - ddp_p).abs().max()))
+        fr, dpr = f.clone().requires_grad_(), dp.clone().requires_grad_()
+        gf, gdp = torch.autograd.grad(K.fused_lap_dropout(fr, dpr, eps_t, seeds), (fr, dpr), g)
+        check(torch.equal(gf, df) and torch.equal(gdp, ddp), "member autograd.Function differs")
+        print(f"  (M, B, F) = {(M, B, F)}: forward equal to dp_block_plain and to {M} single "
+              f"calls, bit for bit; backward equal to {M} single calls, bit for bit, max "
+              f"|bwd - plain| {err['dp_bwd']:.3g}")
     return err
 
 
@@ -1152,6 +1225,311 @@ def run_drivers(torch, dev, rng, all_kernels, layers, steps):
     torch.cuda.empty_cache()
 
 
+# f32 member step against single-member steps: cuBLAS's batched and single
+# GEMMs sum in other orders (the attention kernels and the DP block are bit
+# for bit per member), the tolerance of the CPU parity tests
+MEMBER_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def launches_by_name(all_kernels):
+    return {k.name: k.launches for k in all_kernels}
+
+
+def check_launches(got, want, where):
+    print(f"  {where}: launches {got}, predicted from the code {want}")
+    check(got == want, f"{where}: launches {got}, expected {want}")
+
+
+def run_sweep(torch, dev, rng, all_kernels, layers, steps):
+    """Main path 7, the batched sweep: ``SweepRunner`` over
+    ``privacy_utility_frontier()`` (5 members, epsilon 0.1 to 10), the
+    flagship with the fused DP block in f32, two epochs at 64 / 32 rows, held
+    to path 1's launches (one set of launches a step, whatever M) and its
+    records; one more epoch under ``torch.cuda.set_sync_debug_mode("error")``
+    (the (M, 5) row fetched after it); one member step against five
+    single-member steps from the same weights, the noise handed in and
+    dropout off (``MEMBER_TOL``); the member step profiled in turns against
+    five single-member steps, with the peak memory each adds; then the
+    bench configuration as a 5-member sweep for one epoch. Returns the
+    launches of the f32 sweep."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.data.compact_vocab import build_compact_vocab, remap_pairing
+    from eeg_multimodal_torch.models import bert as bert_mod
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train.records import parse_legacy_records
+    from eeg_multimodal_torch.train.sweep import MemberSteps, SweepRunner, privacy_utility_frontier
+    from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig
+    from eeg_multimodal_torch.utils.trees import tree_items, tree_map
+
+    members = privacy_utility_frontier()
+    M = len(members)
+    phase(f"main path 7: SweepRunner over privacy_utility_frontier() ({M} members, epsilon "
+          "0.1 to 10), TICA_LapDropout fused DP, f32, S = 80, two epochs of 64 / 32 rows")
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
+    tc = TrainConfig(epochs=2, f1_best_init=-1.0)  # every member writes a best record
+    root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    runner = SweepRunner(fc, tc, members)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    res = runner.run(train, test, log_root=root, echo=True)
+    wall = time.perf_counter() - t0
+    launches = launches_by_name(all_kernels)
+    print(f"  {wall:.2f} s for both epochs (init included); peak memory "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB")
+    for r in res:
+        print(f"  {r['member']['epsilon']:>5}: " + "; ".join(
+            f"epoch {h['epoch']} train loss {h['train_loss']:.4f} test loss {h['test_loss']:.4f} "
+            f"f1 {h['f1']:.3f}" for h in r["history"]))
+    check_launches(launches, {"dp_fwd": 2 * (2 * steps + 1), "dp_bwd": 2 * 2 * steps,
+                              "attn_fwd": layers * (2 * steps + 1) * 2,
+                              "attn_bwd": layers * steps * 2}, f"{M}-member sweep, 2 epochs")
+    check(all(set(k.by_dtype) == {"float32"} for k in all_kernels if k.launches),
+          "the f32 sweep launched another instantiation")
+    for r, m in zip(res, members):
+        check(len(r["history"]) == 2 and all(math.isfinite(h[k]) for h in r["history"]
+                                             for k in ROW), f"{m.name}: rows {r['history']}")
+        logs = os.path.join(root, m.name)
+        recs = parse_legacy_records(open(os.path.join(logs, "whole_record.txt")).read())
+        check([x["epoch"] for x in recs] == [1, 2], f"{m.name}: whole_record.txt {recs}")
+        jsonl = [json.loads(x) for x in open(os.path.join(logs, "metrics.jsonl"))]
+        check([(x["epsilon"], x["seed"]) for x in jsonl] == [(m.epsilon, m.seed)] * 2,
+              f"{m.name}: metrics.jsonl {jsonl}")
+        check(os.path.exists(os.path.join(logs, "best_record.txt")), f"{m.name}: no best record")
+    check(len({r["history"][-1]["train_loss"] for r in res}) == M, "the members trained alike")
+    print(f"  records under <log_root>/{members[0].name}/ ... for every member")
+    shutil.rmtree(root)
+
+    phase("main path 7: one more sweep epoch under torch.cuda.set_sync_debug_mode('error'), "
+          "the (M, 5) row fetched after it")
+    steps_m, params, dp_os, model_os = runner.init_members(members)
+    eps_t = torch.tensor([m.epsilon for m in members], dtype=torch.float64, device=dev)
+    train_dev, test_dev = train.to_device(dev), test.to_device(dev)
+    inputs = runner.epoch_inputs(members, 0, N_TRAIN, N_EVAL)
+    for k in all_kernels:
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside the epoch raises
+    try:
+        dp_os, model_os, rows = steps_m.epoch(params, dp_os, model_os, train_dev, test_dev,
+                                              *inputs, eps_t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = rows.tolist()
+    check(len(rows) == M and all(math.isfinite(x) for r in rows for x in r), f"rows {rows}")
+    check_launches(launches_by_name(all_kernels),
+                   {"dp_fwd": 2 * steps + 1, "dp_bwd": 2 * steps,
+                    "attn_fwd": layers * (2 * steps + 1), "attn_bwd": layers * steps},
+                   "one sweep epoch with no host sync")
+
+    phase(f"main path 7: a {M}-member step against {M} single-member steps from the same "
+          "weights, the noise handed in, dropout off (composed DP block)")
+    fc_c = dataclasses.replace(fc, fused_dp_kernel=False)
+    B, F = tc.batch_size, fc.concat_width
+    batch = D.gather_batch(train_dev, torch.arange(B, device=dev))
+    w = torch.ones(B, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = tuple(torch.randn(M * B, F, generator=gen, device=dev) for _ in range(2))
+    ms = MemberSteps(fc_c, tc, M, dev)
+    p_m = tree_map(torch.clone, params)
+    with torch.no_grad():
+        logits_m = ms.forward(p_m, batch, eps_t, True, None, False, noise[1])
+    states = ms.init_opt_states(p_m)
+    unused = torch.Generator(device=dev)  # nothing is drawn: noise handed in, dropout off
+    loss_m = ms.train_step(p_m, *states, batch, w, eps_t, (unused,) * M, dp_noise=noise,
+                           dropout=False)[2]
+    ss = StepFunctions(fc_c, tc, dev)
+    worst = {"logits": 0.0, "loss": 0.0, "params": 0.0}
+    for m in range(M):
+        r = slice(m * B, (m + 1) * B)
+        p1 = tree_map(lambda t: t[m].clone(), params)
+        with torch.no_grad():
+            logits_1 = ss.forward(p1, batch, members[m].epsilon, True, None, False, noise[1][r])
+        loss_1 = ss.train_step(p1, *ss.init_opt_states(p1), batch, w, members[m].epsilon,
+                               unused, dp_noise=(noise[0][r], noise[1][r]), dropout=False)[2]
+        torch.testing.assert_close(logits_m[r], logits_1, **MEMBER_TOL)
+        torch.testing.assert_close(loss_m[m], loss_1, **MEMBER_TOL)
+        worst["logits"] = max(worst["logits"], float((logits_m[r] - logits_1).abs().max()))
+        worst["loss"] = max(worst["loss"], float((loss_m[m] - loss_1).abs()))
+        for (path, a), (_, b) in zip(tree_items(p_m), tree_items(p1)):
+            torch.testing.assert_close(a[m], b, **MEMBER_TOL, msg=lambda e: f"{path}: {e}")
+            worst["params"] = max(worst["params"], float((a[m] - b).abs().max()))
+        del p1
+    print(f"  per member, max |member - single|: logits {worst['logits']:.3g}, loss "
+          f"{worst['loss']:.3g}, updated params {worst['params']:.3g} (tolerance {MEMBER_TOL})")
+    del p_m, ms, states
+
+    phase(f"profile: the {M}-member step against {M} single-member steps, in turns "
+          "(fused DP, f32, S = 80)")
+    gens = tuple(torch.Generator(device=dev).manual_seed(40 + m) for m in range(M))
+    member_states = [dp_os, model_os]
+
+    def member_step():
+        member_states[:] = steps_m.train_step(params, *member_states, batch, w, eps_t, gens)[:2]
+
+    single_steps = StepFunctions(fc, tc, dev)
+    singles = []
+    for m in range(M):
+        p1 = tree_map(lambda t: t[m].clone(), params)
+        singles.append([p1, *single_steps.init_opt_states(p1)])
+
+    def single_member_steps():
+        for (p1, *st), g, mem in zip(singles, gens, members):
+            st[:] = single_steps.train_step(p1, *st, batch, w, mem.epsilon, g)[:2]
+
+    for label, fn in (("members", member_step), ("singles", single_member_steps),
+                      ("singles", single_member_steps), ("members", member_step)):
+        profile_step(torch, fn, f"{M} members as one step" if label == "members"
+                     else f"{M} single-member steps")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        print(f"  peak memory above the params and Adam states: "
+              f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
+              f"({(torch.cuda.max_memory_allocated() - before) / 2**30 / M:.2f} GiB a member)")
+    del singles, params, steps_m, member_states, dp_os, model_os
+    torch.cuda.empty_cache()
+
+    phase(f"main path 7: bench.py's configuration as a {M}-member sweep (bf16 compute and "
+          "Adam moments, precast_params, compact vocab, composed DP), one epoch")
+    train_b, test_b = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    vocab = build_compact_vocab([train_b.eeg_input, test_b.eeg_input])
+    train_b, test_b = remap_pairing(train_b, vocab), remap_pairing(test_b, vocab)
+    fc_b = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"),
+                               bert_config=bert_mod.BertConfig(vocab_size=vocab.size))
+    tc_b = TrainConfig(compute_dtype="bfloat16", adam_mu_dtype="bfloat16",
+                       adam_nu_dtype="bfloat16", precast_params=True, epochs=1)
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    res_b = SweepRunner(fc_b, tc_b, members).run(train_b, test_b, echo=True)
+    got = {k.name: dict(k.by_dtype) for k in all_kernels}
+    print(f"  {time.perf_counter() - t0:.2f} s (init included); compact vocab {vocab.size} rows")
+    want = {"dp_fwd": {}, "dp_bwd": {}, "attn_fwd": {"bfloat16": layers * (2 * steps + 1)},
+            "attn_bwd": {"bfloat16": layers * steps}}
+    check_launches(got, want, "bf16 bench configuration sweep, 1 epoch")
+    check(all(math.isfinite(r["history"][0][k]) for r in res_b for k in ROW),
+          "bf16 sweep: non-finite row")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_legacy(torch, dev, rng, all_kernels, layers, steps):
+    """The legacy drivers, each at full width, S = 80, 64 / 32 rows, one
+    epoch, its launches held to those predicted from the code:
+    ``EpsExperiment.run_all_vmapped`` (20 members in two chunks of 10,
+    records under <out_root>/<eps>/), ``extract_feawei`` then
+    ``dp_inits.feawei`` then ``run_index(i, dp_init=...)``,
+    ``MetricTrainer.fit`` (n_para = 2, n_eval = 5, three metrics, writing
+    results.pkl and model.pth), ``PriGumbelPretrainer.pretrain`` and
+    ``AlphaSweep.run`` over two alphas."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.experiments.legacy_drivers import (AlphaSweep, EpsExperiment,
+                                                                 eps_experiment_epsilons,
+                                                                 extract_feawei)
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.ops import dp_inits
+    from eeg_multimodal_torch.train.legacy import (MetricTrainConfig, MetricTrainer,
+                                                   PriGumbelConfig, PriGumbelPretrainer)
+    from eeg_multimodal_torch.train.trainer import TrainConfig
+
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    root = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    eval_batches = -(-N_EVAL // 8)
+    no_dp = {"dp_fwd": 0, "dp_bwd": 0}
+
+    def counted(fn):
+        for k in all_kernels:
+            k.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"  {time.perf_counter() - t0:.2f} s")
+        return out, launches_by_name(all_kernels)
+
+    phase("legacy drivers: EpsExperiment.run_all_vmapped, 20 members in two chunks of 10, one "
+          "epoch, f32, composed DP")
+    out_root = os.path.join(root, "eps_experiment")
+    exp = EpsExperiment(train_cfg=TrainConfig(epochs=1, f1_best_init=-1.0), out_root=out_root)
+    res, got = counted(lambda: exp.run_all_vmapped(train, test))
+    check_launches(got, {**no_dp, "attn_fwd": 2 * layers * (2 * steps + 1),
+                         "attn_bwd": 2 * layers * steps}, "run_all_vmapped, 2 chunks")
+    epsilons = eps_experiment_epsilons()
+    check([r["member"]["label"] for r in res] == [str(e) for e in epsilons], "member labels")
+    check(all(math.isfinite(r["history"][0][k]) for r in res for k in ROW), "non-finite rows")
+    check(all(os.path.exists(os.path.join(out_root, str(e), "whole_record.txt"))
+              for e in epsilons), "a member wrote no records under <out_root>/<eps>/")
+    print(f"  20 members' records under <out_root>/<eps>/; test acc "
+          + " ".join(f"{r['history'][0]['test_acc']:.3f}" for r in res))
+
+    phase("legacy drivers: extract_feawei, dp_inits.feawei, EpsExperiment.run_index(5, "
+          "dp_init=...), one epoch")
+    fc = exp.fusion_cfg
+    params = fusion.init(fc, 1, dev)
+    feats, got = counted(lambda: extract_feawei(params, fc, train,
+                                                out_path=os.path.join(root, "feawei.pkl")))
+    check_launches(got, {**no_dp, "attn_fwd": layers * -(-N_TRAIN // 8), "attn_bwd": 0},
+                   "extract_feawei")
+    check(feats.shape == (N_TRAIN, fc.concat_width) and np.isfinite(feats).all()
+          and feats.min() >= 0.0 and feats.max() <= 1.0, f"features {feats.shape}")
+    init = dp_inits.feawei(feats)
+    check(init.shape == (1, fc.concat_width) and bool(torch.isfinite(init).all()), "feawei init")
+    out, got = counted(lambda: exp.run_index(5, train, test, dp_init=init))
+    check_launches(got, {**no_dp, "attn_fwd": layers * (2 * steps + 1),
+                         "attn_bwd": layers * steps}, "run_index")
+    eps5 = os.path.join(out_root, str(float(epsilons[5])))
+    check(os.path.exists(os.path.join(eps5, "best_f1.pickle")), "run_index wrote no checkpoint")
+    print(f"  features {feats.shape}, DP init in [{float(init.min()):.3f}, "
+          f"{float(init.max()):.3f}]; run_index f1 {out['history'][0]['f1']:.3f}")
+    del params
+
+    phase("legacy: MetricTrainer.fit, n_para = 2, n_eval = 5, Accuracy,F1Score,AUROC, "
+          "one epoch")
+    cfg = MetricTrainConfig(n_para=2, n_eval=5, n_epochs=1, metrics="Accuracy,F1Score,AUROC")
+    base = os.path.join(root, "metric")
+    out, got = counted(lambda: MetricTrainer(fc, cfg).fit(train, test, base_path=base,
+                                                         echo=False))
+    check_launches(got, {**no_dp, "attn_fwd": layers * (2 * steps + 1),
+                         "attn_bwd": layers * 2 * steps}, "MetricTrainer.fit")
+    with open(os.path.join(base, "results.pkl"), "rb") as f:
+        results = pickle.load(f)
+    check(sorted(results) == sorted(["train_loss", "logits", "pred", "val_loss", "DP_params",
+                                     "Accuracy", "F1Score", "AUROC"]), f"keys {sorted(results)}")
+    check(results["pred"][0].shape == (N_EVAL, 5), f"pred {results['pred'][0].shape}")
+    check(os.path.exists(os.path.join(base, "model.pth")) == (out["best_acc"] > 0),
+          "model.pth and the best accuracy disagree")
+    print("  results.pkl: " + ", ".join(f"{k} {np.asarray(results[k][0]).mean():.3f}"
+                                        for k in ("Accuracy", "F1Score", "AUROC"))
+          + f"; model.pth written: {out['best_acc'] > 0}")
+
+    phase("legacy: PriGumbelPretrainer.pretrain and AlphaSweep.run(alphas=[0.1, 1.0]), one "
+          "epoch each")
+    pg_fc = fusion.config_for("ti", "NDP")
+    per_run = {**no_dp, "attn_fwd": layers * (steps + eval_batches), "attn_bwd": layers * steps}
+    path = os.path.join(root, "pri_gumbel")
+    out, got = counted(lambda: PriGumbelPretrainer(pg_fc, PriGumbelConfig(epochs=1)).pretrain(
+        train, test, path=path, echo=False))
+    check_launches(got, per_run, "PriGumbelPretrainer.pretrain")
+    with open(os.path.join(path, "result.pkl"), "rb") as f:
+        curves = pickle.load(f)
+    check(len(curves) == 7 and all(len(v) == 1 for v in curves.values()), f"curves {curves}")
+    print(f"  privacy budget max {curves['privacy_budget_max'][0]:.4f}, mean "
+          f"{curves['privacy_budget_avg'][0]:.4f}; f1 {curves['f1'][0]:.3f}")
+    sweep = AlphaSweep(pg_fc, out_root=os.path.join(root, "alpha"))
+    sweep.base_cfg = dataclasses.replace(sweep.base_cfg, epochs=1)
+    out, got = counted(lambda: sweep.run(train, test, alphas=[0.1, 1.0]))
+    check_launches(got, {k: 2 * v for k, v in per_run.items()}, "AlphaSweep, two alphas")
+    check(sorted(os.listdir(os.path.join(root, "alpha"))) == ["0.1000", "1.0000"],
+          "AlphaSweep's directories")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
 # cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
 # *_simt_sgemm_*, *_f32f32_*_ffma_*, gemv and gemmSN its CUDA-core ones
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
@@ -1282,12 +1660,18 @@ def main():
         check(torch.equal(gf, df) and torch.equal(gdp, ddp), "autograd.Function differs")
         print(f"  {(B, F)}: max err {err['dp_bwd']:.3g} (ties in row 0)")
 
+    phase("DP kernels with a member axis (the sweep's), against the plain versions and "
+          "M single calls")
+    for name, e in check_member_dp(torch, K, gen, dev).items():
+        err[name] = max(err[name], e)
+
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
     err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D), dpsgd_batches()))
-    print("  G = 2 max errors: " + ", ".join(
-        f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(torch, A, gen,
-                                                                            dev).items()))
+    for G in (2, 5):  # the paired phase encode's 2B forward; the 5-member sweep's rows
+        print(f"  G = {G} max errors: " + ", ".join(
+            f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(
+                torch, A, gen, dev, G).items()))
     print(f"  (checks {time.time() - t0:.1f} s)")
 
     phase("reference check: 2-layer BERT at S = 512, card (attention kernels) against CPU")
@@ -1774,6 +2158,8 @@ def main():
     run_zoo(torch, dev, rng, gen, all_kernels, layers, steps, step_fn)
     run_dpsgd(torch, dev, rng, all_kernels, layers, steps)
     run_drivers(torch, dev, rng, all_kernels, layers, steps)
+    launches_sweep = run_sweep(torch, dev, rng, all_kernels, layers, steps)
+    run_legacy(torch, dev, rng, all_kernels, layers, steps)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
@@ -1872,6 +2258,46 @@ def main():
         kernels.append({
             "name": name, "route": ROUTES[name], "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches_80[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+        })
+
+    M = len(MEMBER_EPS)
+    phase(f"timing: DP kernels with the member axis at ({M} x {B}, {F}), the sweep's, "
+          f"against {M} single calls")
+    fm, gm = torch.randn(M * B, F, generator=gen, device=dev), torch.randn(M * B, F, generator=gen,
+                                                                          device=dev)
+    dpm = torch.randn(M, F, generator=gen, device=dev)
+    eps_m = torch.tensor(MEMBER_EPS, dtype=torch.float64, device=dev)
+    sm = torch.arange(5, 5 + M, dtype=torch.int64, device=dev)
+    rows = [slice(m * B, (m + 1) * B) for m in range(M)]
+
+    def noise_m():
+        return K.laplace_plain(sm.tolist(), (M * B, F), dev)
+
+    timed_m = {
+        "dp_fwd": (lambda: K.dp_fwd(fm, dpm, eps_m, sm),
+                   lambda: [K.dp_fwd(fm[r], dpm[m:m + 1], MEMBER_EPS[m], sm[m:m + 1])
+                            for m, r in enumerate(rows)],
+                   lambda: K.dp_block_plain(fm, dpm, eps_m, noise_m())),
+        "dp_bwd": (lambda: K.dp_bwd(fm, dpm, eps_m, sm, gm),
+                   lambda: [K.dp_bwd(fm[r], dpm[m:m + 1], MEMBER_EPS[m], sm[m:m + 1], gm[r])
+                            for m, r in enumerate(rows)],
+                   lambda: K.dp_block_bwd_plain(fm, dpm, eps_m, noise_m(), gm)),
+    }
+    for name, (kern, singles, plain) in timed_m.items():
+        ms, single_ms = time_ms(torch, kern), time_ms(torch, singles, 50, 5)
+        plain_ms = time_ms(torch, plain, 10, 3)
+        dev_k = sum(device_us(torch, kern).values())
+        dev_s = sum(device_us(torch, singles, 10).values())
+        bms, by = dp_bound_ms(name, M * B, F, M)
+        print(f"  {name} members: kernel {ms * 1e3:.2f} us, {M} single calls "
+              f"{single_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (CUDA events); device "
+              f"time kernel {dev_k:.2f} us, {M} single calls {dev_s:.2f} us; bound "
+              f"{bms * 1e3:.4f} us ({by})")
+        kernels.append({
+            "name": name + "_members", "route": ROUTES[name], "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches_sweep[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })

@@ -16,7 +16,11 @@ It imports neither JAX nor the JAX package.
                is the plain twin of their random bits
 - ``train``  : loss and metrics, Adam, the trainer (the alternating and the
                single-optimizer steps) with ``fit``, legacy records,
-               checkpoints, and the ``TrainAndTest`` API
+               checkpoints, the ``TrainAndTest`` API, DP-SGD, the batched
+               epsilon x seed sweep (``train.sweep``) and the legacy
+               trainers (``train.legacy``)
+- ``experiments``: the reference's experiment drivers and its legacy
+               root scripts' drivers
 
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -14,6 +14,16 @@
 // dDP = sum_B(g noise) d eps_hat / dw w (1 - w), the noise regenerated from
 // the seed instead of stored.
 //
+// Sweep members: the batched sweep stacks M members' rows, (M B, F) with
+// member m's B rows the m-th block, and gives each member its own DP row
+// (dp (M, F)), e^eps (a device vector of M) and seed (M int64). Every index
+// below is then the row's within its member: row r of the launch is row
+// r mod B of member r / B, whose pointers are offset to that member's block.
+// So member m's rows compute exactly what a call of their own would, bit
+// for bit, and dDP is each member's own sum over its rows. M = 1 with a host
+// e^eps is the single model's call; e^eps is read from device memory where
+// it differs per member, so a sweep step needs neither a sync nor M launches.
+//
 // The noise is a function of (seed, flat index n = r F + c) alone: element n
 // takes word n & 3 of philox4x32_10(n & ~3, seed) (philox.cuh). So one call
 // serves four neighbouring elements, the forward and both halves of the
@@ -63,8 +73,8 @@
 //    scalar ones for the groups a row boundary cuts and for arrays not
 //    16-byte aligned. The forward's own elements are one float per lane: a
 //    warp still reads and writes 128 contiguous bytes.
-//  - the seed is a one-element int64 device tensor read in the kernel (no
-//    host sync), and the launch goes through ctypes, with no JIT on the way.
+//  - the seed is an int64 device tensor read in the kernel (no host sync),
+//    and the launch goes through ctypes, with no JIT on the way.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -165,6 +175,22 @@ __device__ __forceinline__ Row row_of(int r, int F) {
   return row;
 }
 
+// One member's block of a launch: its rows' offset into the (M B, F)
+// arrays, and its DP row, seed and e^eps.
+struct Member {
+  int64_t off;
+  const float* dp;
+  uint64_t seed;
+  float exp_eps;
+};
+
+__device__ __forceinline__ Member member_of(int m, int B, int F, const float* __restrict__ dp,
+                                            const int64_t* __restrict__ seed_p,
+                                            const float* __restrict__ exp_eps_p, float exp_eps) {
+  return Member{(int64_t)m * B * F, dp + (int64_t)m * F, (uint64_t)seed_p[m],
+                exp_eps_p ? exp_eps_p[m] : exp_eps};
+}
+
 // Whether element k of the row's group j lies in the row.
 __device__ __forceinline__ bool inside(const Row& row, int j, int k) {
   return j >= 0 && j < row.n && (j > 0 || k >= row.head) && (j < row.n - 1 || k <= row.last);
@@ -216,18 +242,22 @@ __device__ __forceinline__ void row_min_max(const float* __restrict__ f, const R
 // r, one element per thread: the four lanes of a quad share a group, whose
 // Philox call the quad's first lane makes and hands on by shuffles.
 __global__ void __launch_bounds__(NT_FWD)
-    dp_fwd_kernel(const float* __restrict__ f, const float* __restrict__ dp,
-                  const int64_t* __restrict__ seed_p, float* __restrict__ out, int F,
-                  float exp_eps) {
+    dp_fwd_kernel(const float* __restrict__ f, const float* __restrict__ dp_all,
+                  const int64_t* __restrict__ seed_p, const float* __restrict__ exp_eps_p,
+                  float* __restrict__ out, int B, int F, float exp_eps_host) {
   __shared__ float red[2][NT_FWD / 32];
-  const Row row = row_of(blockIdx.x, F);
+  const Member mem = member_of(blockIdx.x / B, B, F, dp_all, seed_p, exp_eps_p, exp_eps_host);
+  f += mem.off, out += mem.off;
+  const float* __restrict__ dp = mem.dp;
+  const float exp_eps = mem.exp_eps;
+  const Row row = row_of(blockIdx.x % B, F);
   const int k = threadIdx.x & 3, j = blockIdx.y * (NT_FWD / 4) + (threadIdx.x >> 2);
   const int64_t n = (row.q_lo + j) * 4 + k;  // the thread's flat element
   const bool mine = inside(row, j, k);
   // the element's noise and eps_hat come before the row's reduction, so
   // that their latencies overlap the row's loads
   uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (k == 0 && j < row.n) w = philox4x32_10((uint64_t)n, (uint64_t)*seed_p);
+  if (k == 0 && j < row.n) w = philox4x32_10((uint64_t)n, mem.seed);
   const int lead = threadIdx.x & 28;  // the quad's first lane
   const uint32_t w0 = __shfl_sync(0xffffffffu, w.x, lead), w1 = __shfl_sync(0xffffffffu, w.y, lead);
   const uint32_t w2 = __shfl_sync(0xffffffffu, w.z, lead), w3 = __shfl_sync(0xffffffffu, w.w, lead);
@@ -365,8 +395,7 @@ __device__ __forceinline__ void df_slice(const float* __restrict__ f,
 // takes rows k, k + 4, ..., and the warps' partial sums are added in warp
 // order.
 __device__ __forceinline__ void ddp_cols(const float* __restrict__ g,
-                                         const float* __restrict__ dp,
-                                         const int64_t* __restrict__ seed_p,
+                                         const float* __restrict__ dp, uint64_t seed,
                                          float* __restrict__ ddp, int B, int F, float exp_eps,
                                          int cb) {
   __shared__ float4 part[NT / 32][32];  // [warp][lane]
@@ -377,7 +406,6 @@ __device__ __forceinline__ void ddp_cols(const float* __restrict__ g,
   const bool vec = aligned16(g) && (F & 3) == 0;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   if (c < F) {
-    const uint64_t seed = (uint64_t)*seed_p;
     // d eps_hat / dw w (1 - w) of column c + warp, which needs DP only:
     // its divisions and transcendentals overlap the row loop instead of
     // following the sum, one column per thread
@@ -412,18 +440,27 @@ __device__ __forceinline__ void ddp_cols(const float* __restrict__ g,
   store4(ddp, c, 0, F, aligned16(ddp), o);
 }
 
-// Blocks b < df_blocks take df of slice b % slices of row b / slices; the
-// rest take dDP.
+// Blocks b < df_blocks take df of slice b % slices of launch row b /
+// slices; the rest take dDP, col_blocks column blocks per member, member
+// after member. B is the rows of one member.
 __global__ void __launch_bounds__(NT)
     dp_bwd_kernel(const float* __restrict__ f, const float* __restrict__ g,
                   const float* __restrict__ dp, const int64_t* __restrict__ seed_p,
-                  float* __restrict__ df, float* __restrict__ ddp, int B, int F, float exp_eps,
-                  int slices, int df_blocks) {
+                  const float* __restrict__ exp_eps_p, float* __restrict__ df,
+                  float* __restrict__ ddp, int B, int F, float exp_eps, int slices,
+                  int df_blocks, int col_blocks) {
   const int b = blockIdx.x;
-  if (b < df_blocks)
-    df_slice(f, g, df, b / slices, b % slices, F);
-  else
-    ddp_cols(g, dp, seed_p, ddp, B, F, exp_eps, b - df_blocks);
+  if (b < df_blocks) {
+    // df needs no DP, seed or eps: only the member's row offset
+    const int r = b / slices;
+    const int64_t off = (int64_t)(r / B) * B * F;
+    df_slice(f + off, g + off, df + off, r % B, b % slices, F);
+  } else {
+    const int m = (b - df_blocks) / col_blocks;
+    const Member mem = member_of(m, B, F, dp, seed_p, exp_eps_p, exp_eps);
+    ddp_cols(g + mem.off, mem.dp, mem.seed, ddp + (int64_t)m * F, B, F, mem.exp_eps,
+             (b - df_blocks) % col_blocks);
+  }
 }
 
 // An empty kernel: the launch floor the timing phase sets beside the others.
@@ -437,26 +474,30 @@ int slices_for(int F, int groups) {
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. f, g, out, df: (B, F) contiguous
-// f32; dp, ddp: (F,) f32; seed: one int64; exp_eps = e^eps rounded to f32.
-// Each returns cudaGetLastError() after its launch.
+// Plain C interface, loaded with ctypes. M members of B rows each: f, g,
+// out, df: (M B, F) contiguous f32; dp, ddp: (M, F) f32; seed: M int64;
+// exp_eps: M f32 values of e^eps on the device, or null for the host's
+// exp_eps_host (e^eps rounded to f32) for every member. Each returns
+// cudaGetLastError() after its launch.
 extern "C" {
 
-int eeg_dp_fwd(const float* f, const float* dp, const int64_t* seed, float* out, int B, int F,
-               float exp_eps, void* stream) {
-  dp_fwd_kernel<<<dim3(B, slices_for(F, NT_FWD / 4)), NT_FWD, 0, (cudaStream_t)stream>>>(
-      f, dp, seed, out, F, exp_eps);
+int eeg_dp_fwd(const float* f, const float* dp, const int64_t* seed, const float* exp_eps,
+               float* out, int M, int B, int F, float exp_eps_host, void* stream) {
+  dp_fwd_kernel<<<dim3(M * B, slices_for(F, NT_FWD / 4)), NT_FWD, 0, (cudaStream_t)stream>>>(
+      f, dp, seed, exp_eps, out, B, F, exp_eps_host);
   return cudaGetLastError();
 }
 
 // df or ddp null leaves that half out of the grid (not both).
-int eeg_dp_bwd(const float* f, const float* g, const float* dp, const int64_t* seed, float* df,
-               float* ddp, int B, int F, float exp_eps, void* stream) {
+int eeg_dp_bwd(const float* f, const float* g, const float* dp, const int64_t* seed,
+               const float* exp_eps, float* df, float* ddp, int M, int B, int F,
+               float exp_eps_host, void* stream) {
   const int slices = slices_for(F, NT);
-  const int df_blocks = df ? B * slices : 0;
-  const int ddp_blocks = ddp ? ((F + 3) / 4 + 31) / 32 : 0;
+  const int df_blocks = df ? M * B * slices : 0;
+  const int col_blocks = ((F + 3) / 4 + 31) / 32;
+  const int ddp_blocks = ddp ? M * col_blocks : 0;
   dp_bwd_kernel<<<df_blocks + ddp_blocks, NT, 0, (cudaStream_t)stream>>>(
-      f, g, dp, seed, df, ddp, B, F, exp_eps, slices, df_blocks);
+      f, g, dp, seed, exp_eps, df, ddp, B, F, exp_eps_host, slices, df_blocks, col_blocks);
   return cudaGetLastError();
 }
 

@@ -11,6 +11,13 @@ compute cast the embeddings, the packed QKV (f32 accumulation, one rounding)
 and every layer's output are bf16, each LayerNorm runs in f32, and the
 (B, H, S, D) bf16 q/k/v go to the attention kernels with an f32 bias, as
 ``bert.py:101-173`` of the JAX package has it.
+
+Stacked members (``train/sweep.py``): every leaf of the tree may carry a
+leading member axis M ((M, V, E) word table, (M, E, E) kernels), the input
+then holding M groups of rows, member after member. Each group reads its
+own member's embedding tables and goes through its weights
+(``models/layers.py``); a group of M generators gives each member its own
+dropout masks and attention seed (the kernels' seed vector, G = M).
 """
 from __future__ import annotations
 
@@ -131,6 +138,21 @@ def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen):
     return linear(p["output"], ctx.transpose(1, 2).reshape(B, S, H).to(x.dtype))
 
 
+def _member_embeddings(emb, input_ids, token_type_ids):
+    """The embedding sum for M stacked members: group m of the (M B, S)
+    ids reads member m's word, position and token-type tables."""
+    M, S = emb["word"].shape[0], input_ids.shape[1]
+    member = torch.arange(M, device=input_ids.device)[:, None]
+    ids = input_ids.reshape(M, -1)  # (M, B S)
+    x = emb["word"][member, ids].reshape(M, -1, S, emb["word"].shape[-1])
+    x = x + emb["position"][:, None, :S, :]
+    if token_type_ids is None:
+        x = x + emb["token_type"][:, 0][:, None, None, :]
+    else:
+        x = x + emb["token_type"][member, token_type_ids.reshape(M, -1)].reshape(x.shape)
+    return x.reshape(input_ids.shape + x.shape[-1:])
+
+
 def apply(
     params,
     input_ids,  # (B, S) int64
@@ -144,11 +166,14 @@ def apply(
     when it is None."""
     S = input_ids.shape[1]
     emb = params["embeddings"]
-    x = emb["word"][input_ids] + emb["position"][:S][None, :, :]
-    if token_type_ids is None:
-        x = x + emb["token_type"][0][None, None, :]
+    if emb["word"].dim() == 3:
+        x = _member_embeddings(emb, input_ids, token_type_ids)
     else:
-        x = x + emb["token_type"][token_type_ids]
+        x = emb["word"][input_ids] + emb["position"][:S][None, :, :]
+        if token_type_ids is None:
+            x = x + emb["token_type"][0][None, None, :]
+        else:
+            x = x + emb["token_type"][token_type_ids]
     x = layer_norm(emb["ln"], x, config.layer_norm_eps)
     x = dropout(x, config.hidden_dropout, gen)
 

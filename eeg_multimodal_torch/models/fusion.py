@@ -28,6 +28,13 @@ the bf16 mean of the EEG sequence beside the f32 act embedding, promoted to
 f32. The concat and the head are f32; on the composed path ``w =
 sigmoid(DP)`` is bf16 and eps_hat f32, and the fused path casts the bf16
 ``DP`` back to f32 (fusion.py:204, :249-284, :313 there).
+
+Stacked members (the batched sweep, ``train/sweep.py``): :func:`init_members`
+builds M members' trees stacked on a leading axis, and ``apply`` over such a
+tree takes the batch repeated M times (:func:`repeat_batch`), a per-member
+(M,) ``epsilon`` and a group of M generators: member m's rows go through
+its own weights, DP row, epsilon and draws, one set of launches for all M
+(``models/layers.py``, ``ops/dp.py``, ``ops/dp_fused.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from ..ops import dp_fused
 from ..utils.device import resolve_device
 from ..utils.seeding import derive_seed
 from ..utils.seeding import generator as make_generator
-from ..utils.trees import tree_cast, tree_map
+from ..utils.trees import tree_cast, tree_items, tree_map
 from . import bert as bert_mod
 from . import layers as L
 
@@ -176,6 +183,27 @@ def init(config: FusionConfig, seed: int, device=None, bert_params=None):
     return params if dtype == torch.float32 else tree_cast(params, dtype)
 
 
+def init_members(config: FusionConfig, seeds, device=None, bert_params=None):
+    """M members' trees stacked on a leading axis, member m drawn by
+    :func:`init` from ``seeds[m]`` (``bert_params`` injected into each).
+    Each member is drawn and copied into its slot in turn, so the peak holds
+    one member beside the stack."""
+    stacked = None
+    for m, seed in enumerate(seeds):
+        one = init(config, seed, device, bert_params)
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((len(seeds), *t.shape)), one)
+        for (_, dst), (_, src) in zip(tree_items(stacked), tree_items(one)):
+            dst[m].copy_(src)
+    return stacked
+
+
+def repeat_batch(batch, members: int):
+    """Every array of ``batch`` repeated ``members`` times along the rows,
+    member after member: the input of ``apply`` over stacked members."""
+    return {k: v.repeat(members, *(1,) * (v.dim() - 1)) for k, v in batch.items()}
+
+
 def _encode_streams(params, batch, config: FusionConfig, gen):
     """The two modality streams: (feat_a, seq_a, feat_b, seq_b), stream a
     the EEG stream, b the act stream (fusion.py:187-221 there). A ``t``
@@ -234,9 +262,8 @@ def encode_features(params, batch, config: FusionConfig, gen, train: bool):
     return torch.cat([t.to(torch.float32) for t in parts], dim=1)
 
 
-def apply_head(params, feature_raw, config: FusionConfig, epsilon: float, hard: bool,
-               gen: Optional[torch.Generator], train: bool = False, dp_noise=None,
-               return_features: bool = False):
+def apply_head(params, feature_raw, config: FusionConfig, epsilon, hard: bool,
+               gen, train: bool = False, dp_noise=None, return_features: bool = False):
     """min-max normalize -> DP mechanism -> fc1/fc2 -> classifier
     (models.py:70-82; fusion.py:287-337 there).
 
@@ -253,7 +280,11 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon: float, hard: 
     ``dp_noise`` hands in the Laplace(0, 1) draw instead, (B, F) for the
     learned block, (B, 1) for the per-sample ones (tests; CPU only on the
     fused path). ``return_features`` returns the normalized concat (the
-    feature-weight extraction, past_acc_feawei.py:103-124).
+    feature-weight extraction, past_acc_feawei.py:103-124). Over stacked
+    members ``epsilon`` is an (M,) float64 tensor and ``gen`` a group of M
+    generators, one seed or noise draw each. A group of G generators over one
+    model (the legacy trainer's eval repeats) gives each of G blocks of rows
+    its own draws, the fused kernels the one ``DP`` row for each.
     """
     mode = config.dp_mode
     if return_features:
@@ -262,9 +293,12 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon: float, hard: 
     if draws and gen is None and dp_noise is None:
         raise ValueError(f"the {mode} block draws noise: pass a generator")
     if mode == "lapacian_dropout" and config.fused_dp_kernel:
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=feature_raw.device)
-        feature = dp_fused.fused_lap_dropout(feature_raw, params["DP"].float(), epsilon, seed,
-                                             noise=dp_noise)
+        seed = L.draw_seeds(gen, feature_raw.device)
+        dp = params["DP"].float()
+        dp = dp.reshape(-1, dp.shape[-1])
+        if dp.shape[0] < seed.shape[0]:  # G groups of draws over one model's DP row
+            dp = dp.expand(seed.shape[0], -1).contiguous()
+        feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise)
     else:
         feature = dp_ops.minmax_normalize(feature_raw)
         if mode == "lapacian_dropout":
@@ -280,15 +314,16 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon: float, hard: 
             # not per_sample_laplace, which would normalize a second time
             if dp_noise is None:
                 dp_noise = dp_ops.laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device)
-            feature = feature + dp_noise * (1.0 / epsilon)
+            scale = dp_ops.member_scalar(epsilon, lambda e: 1.0 / e)
+            feature = (dp_ops.by_member(feature, epsilon)
+                       + dp_ops.by_member(dp_noise, epsilon) * scale).reshape(feature.shape)
     h = torch.relu(L.linear(params["fc1"], feature))
     h = torch.tanh(L.linear(params["fc2"], h))
     return L.linear(params["classifier"], h)
 
 
-def apply(params, batch, config: FusionConfig, epsilon: float, hard: bool,
-          gen: Optional[torch.Generator], train: bool, dp_noise=None,
-          return_features: bool = False):
+def apply(params, batch, config: FusionConfig, epsilon, hard: bool,
+          gen, train: bool, dp_noise=None, return_features: bool = False):
     """Forward pass -> logits (B, 2): encode_features then apply_head.
     ``gen`` seeds the dropout (``train`` only) and the DP noise (always);
     ``NDP`` and ``DPSGD`` out of training draw nothing and take None."""

@@ -10,6 +10,13 @@ along the first axis, each from its own generator, so a forward over the
 stack draws what G forwards over one batch each would (the paired phase
 encode's two phases in one 2B forward).
 
+Stacked weights. A weight with a leading axis of M (a (M, in, out) linear
+kernel, a (M, E) LayerNorm scale) holds M weight sets, and the input's rows
+fall into M equal groups, group m (rows m N / M .. (m + 1) N / M - 1) going
+through weight set m: the batched sweep's members, each its own model over
+its copy of the batch (M groups of B rows), and the DP-SGD step's
+per-example leaves (M = B groups of one row). No weight is copied per row.
+
 The reference builds its cross-attention block from ``nn.TransformerDecoder``
 (python/src/custom_models/models.py:44-45), and TISC's single-stream block
 from ``nn.TransformerEncoder`` (:235-236): post-LN, ReLU FFN of width 2048,
@@ -31,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.seeding import grouped
 from ..utils.trees import tree_map
 
 FFN_DIM = 2048  # torch TransformerDecoderLayer default dim_feedforward
@@ -86,49 +94,51 @@ def linear(params, x):
     bias before that rounding (cuBLAS's bias epilogue, or beta = 1 on the
     bias), as ``preferred_element_type=float32`` does there.
 
-    A per-example weight, a (B, in, out) kernel and a (B, out) bias, takes
-    row b of x, (B, in) or (B, S, in), through kernel b (one batched GEMM):
-    the DP-SGD step's replicated leaves (``dp/dpsgd.py``)."""
+    A stacked weight, a (M, in, out) kernel and a (M, out) bias, takes the
+    m-th of M equal groups of x's rows, (N, in) or (N, S, in), through kernel
+    m: x viewed as (M, N / M * S, in), one batched GEMM. M = B is the DP-SGD
+    step's per-example leaves (``dp/dpsgd.py``), M members the sweep's
+    (``train/sweep.py``)."""
     dt = torch.promote_types(x.dtype, params["kernel"].dtype)
     kernel, bias = params["kernel"].to(dt), params["bias"].to(dt)
     if kernel.dim() == 3:
-        x3 = x.to(dt) if x.dim() == 3 else x.to(dt).unsqueeze(1)
-        y = torch.baddbmm(bias.unsqueeze(1), x3, kernel)
-        return (y if x.dim() == 3 else y.squeeze(1)).to(x.dtype)
+        M = kernel.shape[0]
+        y = torch.baddbmm(bias.unsqueeze(1), x.to(dt).reshape(M, -1, x.shape[-1]), kernel)
+        return y.reshape(*x.shape[:-1], kernel.shape[-1]).to(x.dtype)
     return F.linear(x.to(dt), kernel.t(), bias).to(x.dtype)
 
 
 def layer_norm(params, x, eps: float = 1e-5):
     """torch LayerNorm (biased variance over the last dim), computed in f32
-    and cast back to x's dtype. A per-example (B, E) scale and bias scale
-    and shift row b of x, (B, ..., E), by their row b."""
+    and cast back to x's dtype. A stacked (M, E) scale and bias scale and
+    shift the m-th of M equal groups of x's rows, (N, ..., E), by their row
+    m."""
     f32 = torch.float32
     scale, bias = params["scale"].to(f32), params["bias"].to(f32)
     if scale.dim() == 1:
         y = F.layer_norm(x.to(f32), x.shape[-1:], scale, bias, eps)
     else:
-        rows = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        y = F.layer_norm(x.to(f32), x.shape[-1:], None, None, eps)
-        y = y * scale.view(rows) + bias.view(rows)
+        M = scale.shape[0]
+        groups = (M, -1) + x.shape[1:]
+        rows = (M,) + (1,) * (x.dim() - 1) + (x.shape[-1],)
+        y = F.layer_norm(x.to(f32), x.shape[-1:], None, None, eps).reshape(groups)
+        y = (y * scale.view(rows) + bias.view(rows)).reshape(x.shape)
     return y.to(x.dtype)
 
 
 def grouped_rand(shape, gen, device):
     """``torch.rand(shape)`` from ``gen``; from a group of G generators, G
     draws of shape[0] / G rows each, one per generator, stacked along the
-    first axis."""
-    if isinstance(gen, torch.Generator):
-        return torch.rand(shape, generator=gen, device=device)
-    rows = shape[0] // len(gen)
-    return torch.cat([torch.rand((rows, *shape[1:]), generator=g, device=device) for g in gen])
+    first axis (``utils/seeding.grouped``)."""
+    return grouped(lambda s, g: torch.rand(s, generator=g, device=device), shape, gen)
 
 
 def draw_seeds(gen, device):
     """One int31 seed per generator of ``gen``, as an int64 vector on
     ``device`` (drawn there: no host sync)."""
-    if isinstance(gen, torch.Generator):
-        return torch.randint(0, 2**31 - 1, (1,), generator=gen, device=device)
-    return torch.cat([torch.randint(0, 2**31 - 1, (1,), generator=g, device=device) for g in gen])
+    n = 1 if gen is None or isinstance(gen, torch.Generator) else len(gen)
+    return grouped(lambda s, g: torch.randint(0, 2**31 - 1, s, generator=g, device=device),
+                   (n,), gen)
 
 
 def dropout(x, rate: float, gen):
@@ -154,16 +164,20 @@ def multi_head_attention(
     masked keys get -inf scores (layers.py:136-138 of the JAX package).
     Everything up to the output projection runs in f32, whatever the dtypes
     of the inputs and weights; the output projection's input is cast to
-    the query's dtype."""
+    the query's dtype. Stacked (M, E, 3E) / (M, 3E) in-projections take M
+    groups of rows, as :func:`linear` does."""
     B, Sq, E = query.shape
     Sk = key_value.shape[1]
     H = num_heads
     D = E // H
     f32 = torch.float32
     w, b = params["in_proj_kernel"].to(f32), params["in_proj_bias"].to(f32)
-    q = F.linear(query.to(f32), w[:, :E].t(), b[:E])
-    k = F.linear(key_value.to(f32), w[:, E:2 * E].t(), b[E:2 * E])
-    v = F.linear(key_value.to(f32), w[:, 2 * E:].t(), b[2 * E:])
+
+    def proj(x, i):  # the i-th of the q, k, v projections
+        return linear({"kernel": w[..., i * E:(i + 1) * E], "bias": b[..., i * E:(i + 1) * E]},
+                      x.to(f32))
+
+    q, k, v = proj(query, 0), proj(key_value, 1), proj(key_value, 2)
     q = q.reshape(B, Sq, H, D).transpose(1, 2)  # (B, H, Sq, D)
     k = k.reshape(B, Sk, H, D).transpose(1, 2)
     v = v.reshape(B, Sk, H, D).transpose(1, 2)

@@ -16,6 +16,15 @@ test hook, the draw itself (``noise``, ``gumbel``, ``keep``), so that tests
 can hand the port the JAX reference's threefry draws. There is one Laplace
 sampler (``laplace_from_bits`` over ``random_bits``), which the fused
 kernels' plain twin (``ops/dp_fused.py``) uses too.
+
+Sweep members. Where M members are stacked on a leading axis (the batched
+sweep, ``train/sweep.py``), a (N, F) feature holds M groups of N / M rows,
+member m's rows the m-th group. ``epsilon`` is then a per-member (M,) or
+(M, 1) tensor instead of a float (float64 keeps the float's value), a
+learned parameter carries the member axis first ((M, 1, F) ``DP``, (M, F)
+``w``), and a draw takes a group of M generators, one per member
+(``utils/seeding.grouped``). Each member's rows then get what a call over
+its rows alone, with its float epsilon and its generator, would give.
 """
 from __future__ import annotations
 
@@ -23,13 +32,51 @@ import math
 
 import torch
 
+from ..utils.seeding import grouped
+
 _U23 = 1.0 / (1 << 23)
 
 
-def random_bits(shape, generator: torch.Generator, device="cpu"):
-    """Uniform 32-bit draws, held in int64 (torch has no uint32 sampler)."""
-    return torch.randint(0, 1 << 32, shape, generator=generator,
-                         dtype=torch.int64, device=device)
+def random_bits(shape, generator, device="cpu"):
+    """Uniform 32-bit draws, held in int64 (torch has no uint32 sampler);
+    from a group of generators, one block of rows each."""
+    return grouped(lambda s, g: torch.randint(0, 1 << 32, s, generator=g, dtype=torch.int64,
+                                              device=device), shape, generator)
+
+
+def per_member(epsilon) -> bool:
+    """Whether ``epsilon`` is a per-member tensor (else a float)."""
+    return isinstance(epsilon, torch.Tensor)
+
+
+def _exp(e):
+    return torch.exp(e) if per_member(e) else math.exp(e)
+
+
+def _log(e):
+    return torch.log(e) if per_member(e) else math.log(e)
+
+
+def member_scalar(epsilon, fn):
+    """``fn(epsilon)`` for a float; for a per-member tensor ``fn`` of its
+    float64 values, rounded once to f32 as a Python float is where it meets
+    an f32 tensor, shaped (M, 1, 1) to scale a (M, rows, F) group view."""
+    if not per_member(epsilon):
+        return fn(epsilon)
+    return fn(epsilon.double()).float().reshape(-1, 1, 1)
+
+
+def member_exp(epsilon):
+    """e^eps, as :func:`member_scalar` gives it."""
+    return member_scalar(epsilon, _exp)
+
+
+def by_member(x, epsilon):
+    """``x`` (N, ...) as the (M, N / M, ...) view of its member groups for
+    a per-member ``epsilon``; ``x`` itself for a float."""
+    if not per_member(epsilon):
+        return x
+    return x.reshape(epsilon.shape[0], -1, *x.shape[1:])
 
 
 def _open_unit(bits):
@@ -50,15 +97,17 @@ def laplace_from_bits(bits):
     return -torch.sign(u) * torch.log1p(-2.0 * u.abs())
 
 
-def laplace_noise(shape, scale: float, gen: torch.Generator, device="cpu"):
+def laplace_noise(shape, scale: float, gen, device="cpu"):
     """iid Laplace(0, scale) of ``shape`` drawn from ``gen`` (ref:
-    torch.distributions.Laplace, models.py:54,74)."""
+    torch.distributions.Laplace, models.py:54,74), or from a group of
+    generators, one block of rows each."""
     return laplace_from_bits(random_bits(shape, gen, device)) * scale
 
 
-def gumbel_noise(shape, gen: torch.Generator, device="cpu"):
+def gumbel_noise(shape, gen, device="cpu"):
     """iid Gumbel(0, 1) of ``shape``: -log(-log u), u strictly inside (0, 1),
-    so every draw is finite (|g| < 17)."""
+    so every draw is finite (|g| < 17); a group of generators draws one
+    block of rows each."""
     return -torch.log(-torch.log(_open_unit(random_bits(shape, gen, device))))
 
 
@@ -69,7 +118,7 @@ def minmax_normalize(x):
     return (x - x_min) / (x_max - x_min)
 
 
-def eps_hat_prefix(w, epsilon: float):
+def eps_hat_prefix(w, epsilon):
     """The pre-fix noise scale log((e^eps - w) / (1 - w)), no reciprocal
     (ref: model.py:57): the ``model_dict/new_<eps>eps`` generation, whose
     noise grows with eps.
@@ -78,11 +127,12 @@ def eps_hat_prefix(w, epsilon: float):
     promotion (ops/dp.py:41-55 there) gives f32 for e^eps - w (its e^eps is
     an f32 array) but bf16 for 1 - w (a Python float against bf16); the
     quotient and the log are f32. The casts below say the same; for an f32
-    ``w`` they do nothing."""
-    return torch.log((math.exp(epsilon) - w.float()) / (1.0 - w).float())
+    ``w`` they do nothing. A per-member ``epsilon`` takes a (M, 1, F)
+    ``w``."""
+    return torch.log((member_exp(epsilon) - w.float()) / (1.0 - w).float())
 
 
-def eps_hat(w, epsilon: float):
+def eps_hat(w, epsilon):
     """Per-feature noise scale 1 / log((e^eps - w) / (1 - w)) (ref:
     models.py:75, the '# fix' form). ``w`` is sigmoid(DP) in (0, 1)."""
     return 1.0 / eps_hat_prefix(w, epsilon)
@@ -105,7 +155,13 @@ def gumbel_softmax(logits, tau: float = 1.0, hard: bool = False, dim: int = -1,
     return y_hard + (y_soft - y_soft.detach())
 
 
-def lap_dropout(feature, dp_param, epsilon: float, hard: bool, gen=None, noise=None,
+def _member_w(dp_param, epsilon):
+    """sigmoid(DP), as (M, 1, F) for a per-member ``epsilon``."""
+    w = torch.sigmoid(dp_param)
+    return w.reshape(epsilon.shape[0], 1, -1) if per_member(epsilon) else w
+
+
+def lap_dropout(feature, dp_param, epsilon, hard: bool, gen=None, noise=None,
                 gumbel=None, prefix_eps_hat: bool = False):
     """The flagship DP block with its Gumbel stage (ref: models.py:73-79):
 
@@ -115,31 +171,39 @@ def lap_dropout(feature, dp_param, epsilon: float, hard: bool, gen=None, noise=N
 
     feature (B, F) normalized; dp_param (1, F). The mask's halves sum to one,
     so this equals :func:`lap_dropout_fast` in value and gradient; the
-    Laplace draw comes first from ``gen``, then the (2, B, F) Gumbel draw.
+    Laplace draw comes first from ``gen``, then the (2, B, F) Gumbel draw
+    (per member (2, B / M, F) from its generator, for a group).
     """
-    w = torch.sigmoid(dp_param)
+    w = _member_w(dp_param, epsilon)
     if noise is None:
         noise = laplace_noise(feature.shape, 1.0, gen, feature.device)
     scale = (eps_hat_prefix if prefix_eps_hat else eps_hat)(w, epsilon)
-    feature = feature + noise * scale.to(feature.dtype)
-    logits = torch.stack((w, 1.0 - w)).expand(2, *feature.shape)
-    mask = gumbel_softmax(logits, tau=1.0, hard=hard, dim=0, gen=gen, gumbel=gumbel)
-    return (feature[None] * mask).sum(dim=0)
+    x = by_member(feature, epsilon) + by_member(noise, epsilon) * scale.to(feature.dtype)
+    logits = torch.stack((w, 1.0 - w)).expand(2, *x.shape)
+    if gumbel is None:  # the draw's rows are its second axis
+        gumbel = grouped(lambda s, g: gumbel_noise((s[1], s[0], *s[2:]), g, feature.device)
+                         .transpose(0, 1), (feature.shape[0], 2, *feature.shape[1:]), gen)
+        gumbel = gumbel.transpose(0, 1).reshape(logits.shape).to(logits.dtype)
+    mask = gumbel_softmax(logits, tau=1.0, hard=hard, dim=0, gumbel=gumbel.reshape(logits.shape))
+    return (x[None] * mask).sum(dim=0).reshape(feature.shape)
 
 
-def lap_dropout_fast(feature, dp_param, epsilon: float, noise, prefix_eps_hat: bool = False):
+def lap_dropout_fast(feature, dp_param, epsilon, noise, prefix_eps_hat: bool = False):
     """The flagship DP block with the Gumbel identity removed:
     ``feature + noise * eps_hat(sigmoid(DP), eps)`` (the pre-fix scale with
     ``prefix_eps_hat``).
 
-    feature : (B, F) min-max-normalized features; dp_param : (1, F) logits;
-    noise : (B, F) Laplace(0, 1) draw.
+    feature : (B, F) min-max-normalized features; dp_param : (1, F) logits
+    ((M, 1, F) with a per-member ``epsilon``); noise : (B, F) Laplace(0, 1)
+    draw.
     """
-    scale = (eps_hat_prefix if prefix_eps_hat else eps_hat)(torch.sigmoid(dp_param), epsilon)
-    return feature + noise * scale
+    scale = (eps_hat_prefix if prefix_eps_hat else eps_hat)(_member_w(dp_param, epsilon),
+                                                           epsilon)
+    out = by_member(feature, epsilon) + by_member(noise, epsilon) * scale
+    return out.reshape(feature.shape)
 
 
-def equal_weight_dp(feature, epsilon: float, dropout_rate: float, train: bool, gen=None,
+def equal_weight_dp(feature, epsilon, dropout_rate: float, train: bool, gen=None,
                     noise=None, keep=None):
     """The equal-weight ablation (ref: models.py:399-405): ``nn.Dropout``
     at ``dropout_rate``, in training only, then one Laplace draw per sample,
@@ -150,23 +214,28 @@ def equal_weight_dp(feature, epsilon: float, dropout_rate: float, train: bool, g
     if train and dropout_rate > 0.0:
         p_keep = 1.0 - dropout_rate
         if keep is None:
-            keep = torch.rand(feature.shape, generator=gen, device=feature.device) < p_keep
+            keep = grouped(lambda s, g: torch.rand(s, generator=g, device=feature.device),
+                           feature.shape, gen) < p_keep
         feature = torch.where(keep, feature / p_keep,
                               torch.zeros((), dtype=feature.dtype, device=feature.device))
-    lap_sigma = math.log((math.exp(epsilon) - dropout_rate) / (1.0 - dropout_rate))
+    lap_sigma = member_scalar(
+        epsilon, lambda e: _log((_exp(e) - dropout_rate) / (1.0 - dropout_rate)))
     if noise is None:
         noise = laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device)
-    return feature + noise * lap_sigma
+    out = by_member(feature, epsilon) + by_member(noise, epsilon) * lap_sigma
+    return out.reshape(feature.shape)
 
 
-def per_sample_laplace(feature, epsilon: float, gen=None, noise=None):
+def per_sample_laplace(feature, epsilon, gen=None, noise=None):
     """Min-max normalize, then one Laplace(0, 1/eps) draw per sample
     broadcast over the features (ref: train_val.py:114-123,
     main_0430.py:76-85). ``noise``: the (B, 1) Laplace(0, 1) draw."""
     feature = minmax_normalize(feature)
     if noise is None:
         noise = laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device)
-    return feature + noise * (1.0 / epsilon)
+    out = by_member(feature, epsilon) + by_member(noise, epsilon) * member_scalar(
+        epsilon, lambda e: 1.0 / e)
+    return out.reshape(feature.shape)
 
 
 def gumbel_dropout(x, w, tau: float = 0.1, hard: bool = True, gen=None, gumbel=None):
@@ -179,6 +248,9 @@ def gumbel_dropout(x, w, tau: float = 0.1, hard: bool = True, gen=None, gumbel=N
     return x * mask / (1.0 - w)
 
 
-def privacy_regularized_loss(ce_loss, w, alpha: float, epsilon: float):
-    """alpha * CE + max((1 - w) e^eps + w) (ref: train_val.py:88-90)."""
-    return alpha * ce_loss + ((1.0 - w) * math.exp(epsilon) + w).max()
+def privacy_regularized_loss(ce_loss, w, alpha: float, epsilon):
+    """alpha * CE + max((1 - w) e^eps + w) (ref: train_val.py:88-90); per
+    member, the max over each member's (M, F) row of ``w``."""
+    e = member_exp(epsilon)
+    return alpha * ce_loss + ((1.0 - w) * (e.reshape(-1, 1) if per_member(epsilon) else e)
+                              + w).amax(-1)

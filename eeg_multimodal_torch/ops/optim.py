@@ -20,6 +20,14 @@ under bf16's half-ulp, so a round-to-nearest nu rounds back to its old
 value when the gradient falls and can only ratchet upward; stochastic
 rounding stores an unbiased value instead. Its random bits are a function
 of (the run's seed, the step count), as the JAX package folds them.
+
+Stacked members (``members=M``, the batched sweep): every leaf carries a
+leading member axis, and the moments are elementwise, so each member's
+update is the one its own optimizer would make. The rounding bits are not
+drawn across the flat buffer of all members: the JAX sweep's one optimizer
+folds (seed, count) alike for every member under ``vmap``, so every member
+rounds with the bits of a single run at that seed, and so it does here (one
+member's draw, laid out over each leaf's M slices).
 """
 from __future__ import annotations
 
@@ -76,11 +84,13 @@ class Adam:
     def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32,
                  nu_dtype: torch.dtype = torch.float32, nu_stochastic_rounding: bool = True,
-                 sr_seed: Optional[int] = None):
+                 sr_seed: Optional[int] = None, members: int = 1):
         """``mu_dtype`` / ``nu_dtype``: the moments' storage dtypes. A bf16
         nu is stored with stochastic rounding unless
         ``nu_stochastic_rounding=False`` (which warns); ``sr_seed``, the
-        run's seed, decorrelates the rounding across runs."""
+        run's seed, decorrelates the rounding across runs. ``members``: the
+        leading member axis of every leaf (module docstring)."""
+        self.members = members
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.dtypes = {"mu": mu_dtype, "nu": nu_dtype}
         self.nu_sr = nu_stochastic_rounding and nu_dtype == torch.bfloat16
@@ -133,6 +143,22 @@ class Adam:
         # the step above used the f32 moments; now store them
         for name, flat in flat32.items():
             if name == "nu" and self.nu_sr:
-                flat = stochastic_round_to_bf16(flat, self._sr_generator(count, flat.device))
+                flat = self._stochastic_round(flat, params, count)
             state.packed[name].copy_(flat)  # round to nearest, or the rounded nu
         return AdamState(count, state.mu, state.nu, state.packed)
+
+    def _stochastic_round(self, flat, params, count: int):
+        """The flat f32 nu stochastically rounded to bf16 with step
+        ``count``'s bits: one draw over the flat buffer, or over one member's
+        share of it, each leaf's chunk of that draw serving the leaf's M
+        member slices alike."""
+        gen = self._sr_generator(count, flat.device)
+        if self.members == 1:
+            return stochastic_round_to_bf16(flat, gen)
+        M = self.members
+        sizes = [p.numel() // M for p in params]
+        rnd = torch.randint(0, 1 << 16, (sum(sizes),), generator=gen, dtype=torch.int32,
+                            device=flat.device)
+        # leaf after leaf, its chunk once per member: the stacked buffer's order
+        rnd = torch.cat([c for c in rnd.split(sizes) for _ in range(M)])
+        return stochastic_round_bits(flat, rnd)

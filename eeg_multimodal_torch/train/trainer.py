@@ -152,6 +152,13 @@ class TrainConfig:
         return self.reuse_phase_features
 
 
+def epoch_generator(seed: int, epoch: int, name: str, device="cpu") -> torch.Generator:
+    """The generator of epoch ``epoch``'s draws named ``name`` ("shuffle",
+    "eval_shuffle", "train", "eval") for a run at ``seed``: each seeded
+    from (seed, epoch, name), so that no draw moves another."""
+    return generator(derive_seed(seed, "epoch", epoch, name), device)
+
+
 def _is_model(path: str) -> bool:
     return not fusion.dp_param_predicate(path)
 
@@ -172,10 +179,18 @@ def _track(params, select):
 
 
 class StepFunctions:
-    """Train and eval epochs for one (FusionConfig, TrainConfig) on one device."""
+    """Train and eval epochs for one (FusionConfig, TrainConfig) on one device.
+
+    ``lead`` is the leading shape of every per-model number (losses,
+    accuracies, predictions): () here, (M,) for the sweep's stacked
+    members (``train/sweep.py::MemberSteps``)."""
+
+    lead = ()
 
     def __init__(self, fusion_cfg: fusion.FusionConfig, train_cfg: TrainConfig,
-                 device=None):
+                 device=None, members: int = 1):
+        """``members``: the leading member axis of a stacked tree, for the
+        model optimizer's rounding bits (``ops/optim.py``)."""
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
@@ -192,7 +207,7 @@ class StepFunctions:
         self.model_opt = Adam(train_cfg.learning_rate,
                               mu_dtype=getattr(torch, train_cfg.adam_mu_dtype),
                               nu_dtype=getattr(torch, train_cfg.adam_nu_dtype),
-                              sr_seed=train_cfg.seed)
+                              sr_seed=train_cfg.seed, members=members)
 
     def init_opt_states(self, params):
         def leaves(select):
@@ -214,11 +229,20 @@ class StepFunctions:
         the live leaf)."""
         return tree_cast({k: v for k, v in params.items() if k != "DP"}, self.compute_dtype)
 
+    def forward(self, params, batch, epsilon, hard, gen, train, dp_noise=None):
+        """The logits of ``batch``'s rows (``fusion.apply``)."""
+        return fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen, train, dp_noise)
+
     def loss_fn(self, params, batch, weight, epsilon, gen, hard, train, dp_noise=None):
-        logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen,
-                              train, dp_noise)
-        loss, acc, pred, _ = M.cal_loss(logits, batch["labels"], weight)
+        labels = batch["labels"]
+        logits = self.forward(params, batch, epsilon, hard, gen, train, dp_noise)
+        logits = logits.reshape(*self.lead, *labels.shape, -1)
+        loss, acc, pred, _ = M.cal_loss(logits, labels.expand(*self.lead, *labels.shape), weight)
         return loss, acc, pred, logits
+
+    def objective(self, loss):
+        """The scalar a phase differentiates: the loss itself here."""
+        return loss
 
     def phase_generators(self, gen):
         """(phase 1's generator, phase 2's) for a step given ``gen``: a pair
@@ -278,7 +302,7 @@ class StepFunctions:
             p1 = with_dp(dp_alias.to(cd))
         loss1 = self.loss_fn(p1, batch, weight, epsilon, g1, hard=False,
                              train=dropout, dp_noise=dp_noise[0])[0]
-        g_dp = torch.autograd.grad(loss1, [dp_alias])
+        g_dp = torch.autograd.grad(self.objective(loss1), [dp_alias])
         dp_os = self.dp_opt.update(dp_leaves, list(g_dp), dp_os)
 
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
@@ -303,7 +327,7 @@ class StepFunctions:
             model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
         loss, acc, _, _ = self.loss_fn(p, batch, weight, epsilon, gen, hard=True, train=dropout,
                                        dp_noise=noise)
-        grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
+        grads = [g.float() for g in torch.autograd.grad(self.objective(loss), aliases)]
         model_os = self.model_opt.update(model_leaves, grads, model_os)
         if params_c is not None:
             torch._foreach_copy_(copies, model_leaves)
@@ -379,7 +403,7 @@ class StepFunctions:
     def train_epoch(self, params, dp_os, model_os, data, idx, weight, epsilon, gen):
         """Every batch of ``idx`` once; returns (dp_os, model_os, mean loss,
         mean accuracy), the means of batch means (base_train.py:239-242)
-        as device tensors."""
+        as device tensors of shape ``lead``."""
         params_c = self.precast_copy(params) if self.precast else None
         losses, accs = [], []
         for b_idx, w in zip(idx, weight):
@@ -388,7 +412,7 @@ class StepFunctions:
                 params_c=params_c)
             losses.append(loss)
             accs.append(acc)
-        return dp_os, model_os, torch.stack(losses).mean(), torch.stack(accs).mean()
+        return dp_os, model_os, torch.stack(losses).mean(0), torch.stack(accs).mean(0)
 
     @torch.no_grad()
     def eval_epoch(self, params, data, idx, weight, epsilon, gen, dp_noise=None):
@@ -402,7 +426,8 @@ class StepFunctions:
         ``eval_vmap_batches`` every repeat of every batch goes through one
         forward of n_eval x n_batches x B rows (trainer.py:495-501 there),
         else each batch through one of n_eval x B rows. ``dp_noise`` (tests
-        only) gives each batch its (B, F) noise, or its n_eval of them."""
+        only) gives each batch its (B, F) noise, or its n_eval of them. The
+        losses, accuracies, predictions and scores lead with ``lead``."""
         params = self.compute(params)
         n_eval = self.train_cfg.n_eval
         n_batches, B = idx.shape
@@ -416,10 +441,13 @@ class StepFunctions:
             parts = [slice(i, i + 1) for i in range(n_batches)]
         outs = [self._eval_batches(params, data, idx[c], weight[c], epsilon, gen,
                                    None if noise is None else noise[:, c]) for c in parts]
+        # the batch axis of each: per batch (loss, acc), per row (vote, label, score)
         losses, accs, preds, labels, scores = (
-            outs[0] if len(outs) == 1 else (torch.cat(t) for t in zip(*outs)))
-        return (losses.mean(), accs.mean(), preds.reshape(-1), labels.reshape(-1),
-                scores.reshape(-1), weight.reshape(-1))
+            outs[0] if len(outs) == 1
+            else (torch.cat(t, dim=d) for t, d in zip(zip(*outs), (-1, -1, -2, 0, -2))))
+        lead = self.lead
+        return (losses.mean(-1), accs.mean(-1), preds.reshape(*lead, -1), labels.reshape(-1),
+                scores.reshape(*lead, -1), weight.reshape(-1))
 
     def _eval_batches(self, params, data, idx, weight, epsilon, gen, noise):
         """One forward over n_eval repeats of the (n, B) batches ``idx``:
@@ -429,26 +457,27 @@ class StepFunctions:
         n, B = idx.shape
         rows = idx.reshape(-1)
         batch = gather_batch(data, rows if n_eval == 1 else rows.repeat(n_eval))
-        logits = fusion.apply(params, batch, self.fusion_cfg, epsilon, True, gen, False,
+        logits = self.forward(params, batch, epsilon, True, gen, False,
                               None if noise is None else noise.reshape(n_eval * n * B, -1))
-        logits = logits.reshape(n_eval, n, B, -1)
+        logits = logits.reshape(*self.lead, n_eval, n, B, -1)
         labels = batch["labels"][:n * B].reshape(n, B)
         # per-batch means over each (repeat, batch), with the batch's weights
-        losses, accs, pred, _ = M.cal_loss(logits, labels.expand(n_eval, n, B), weight)
-        vote = (pred.to(torch.float32).mean(0) > 0.5).to(pred.dtype)
-        return losses.mean(0), accs.mean(0), vote, labels, logits[..., 1].mean(0)
+        losses, accs, pred, _ = M.cal_loss(logits, labels.expand(*self.lead, n_eval, n, B),
+                                           weight)
+        vote = (pred.to(torch.float32).mean(-3) > 0.5).to(pred.dtype)
+        return losses.mean(-2), accs.mean(-2), vote, labels, logits[..., 1].mean(-3)
 
     def epoch(self, params, dp_os, model_os, train_data, test_data, idx, weight, train_gen,
               eidx, eweight, eval_gen, epsilon):
         """A train epoch, an eval epoch and F1, all on the device: returns
-        (dp_os, model_os, row), the row a (5,) tensor (train loss, train
-        accuracy, test loss, test accuracy, F1)."""
+        (dp_os, model_os, row), the row a (*lead, 5) tensor (train loss,
+        train accuracy, test loss, test accuracy, F1)."""
         dp_os, model_os, tr_loss, tr_acc = self.train_epoch(
             params, dp_os, model_os, train_data, idx, weight, epsilon, train_gen)
         te_loss, te_acc, preds, labels, _, ws = self.eval_epoch(
             params, test_data, eidx, eweight, epsilon, eval_gen)
         return dp_os, model_os, torch.stack([tr_loss, tr_acc, te_loss, te_acc,
-                                             M.f1(labels, preds, ws)])
+                                             M.f1(labels, preds, ws)], dim=-1)
 
     def cycle(self, params, dp_os, model_os, train_data, test_data, idx_all, w_all,
               train_gens, eidx, ew, eval_gens, epsilon):
@@ -516,7 +545,7 @@ class Trainer:
         cfg = self.train_cfg
 
         def gen(name, device="cpu"):
-            return generator(derive_seed(cfg.seed, "epoch", epoch, name), device)
+            return epoch_generator(cfg.seed, epoch, name, device)
 
         idx, w = epoch_indices(n_train, cfg.batch_size, True, gen("shuffle"), self.device)
         eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,

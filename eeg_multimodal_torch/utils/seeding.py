@@ -38,6 +38,20 @@ def generator(seed: int, device="cpu") -> torch.Generator:
     return g
 
 
+def grouped(draw, shape, gen):
+    """``draw(shape, gen)`` from one generator (or None, torch's default);
+    from a group of G
+    generators, G draws of shape[0] / G rows each, one per generator,
+    stacked along the first axis. Each generator then draws what it would
+    draw for its rows alone, so a forward over G stacked batches (sweep
+    members, the paired phase encode's two phases) draws what G forwards
+    would."""
+    if gen is None or isinstance(gen, torch.Generator):
+        return draw(shape, gen)
+    rows = shape[0] // len(gen)
+    return torch.cat([draw((rows, *shape[1:]), g) for g in gen])
+
+
 def child_generator(gen: torch.Generator, *names) -> torch.Generator:
     """A generator on ``gen``'s device, seeded from ``gen``'s current state
     and a path of names; ``gen`` does not move. The state is read on the
