@@ -13,8 +13,9 @@ attention mask bit for bit against ``keep_mask_plain``, also with a seed
 vector of G = 2 over 2B rows and of G = 5 over the sweep's 5 members'
 rows (equal to G calls of G = 1, bit for bit, the forward and backward
 too), the DP kernels with a member axis (equal to M single calls and their
-plain versions, bit for bit); and a 2-layer BERT at S = 512 on the card
-against the CPU. Checks the bf16 Adam moment's
+plain versions, bit for bit), the attention forward at the ViT's shapes
+(S = 50 at 16, 2 and 9 rows, S = 197; zero bias, p = 0); and a 2-layer
+BERT at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
 
@@ -65,6 +66,15 @@ stochastic rounding on the card. Then drives the main paths at full width
    ``extract_feawei``, ``dp_inits.feawei`` and ``run_index``,
    ``MetricTrainer.fit``, ``PriGumbelPretrainer.pretrain`` and
    ``AlphaSweep.run``, each held to the launches predicted from the code;
+8. the embedding path, raw rows to a trained model: raw task txt files of
+   3003 rows through ``process`` (the reference's 2402 / 601 split),
+   ``GetEmbedding.run`` with CLIP ViT-B/32 (its self-attention through the
+   attention forward kernel: 12 launches per chunk of 16 rows, 4536 in
+   all) and ResNet-34 at 224 x 224 and both tokenizers (the C++ WordPiece,
+   every row held to the Python engine), ViT-B/16 on the test split, both
+   towers card against CPU on 4 images, a ViT-B/32 chunk profiled, then
+   one f32 fused-DP epoch of the flagship through ``TrainAndTest.train``
+   from the tree written, which launches all four kernels;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -141,6 +151,14 @@ BF16_LOGIT_TOL = dict(rtol=0.0, atol=5e-4)
 # the host's kernel launches as the profiler names them (cudaLaunchKernel*,
 # and cuLaunchKernel*, through which cuBLAS launches), and its copies and syncs
 LAUNCH_API = re.compile(r"cu(da)?LaunchKernel")
+# main path 8: two raw task files, 3003 rows in all, so that the split is the
+# reference's 2402 / 601 (bench.py:26-27; ceil(0.2 * 3003) = 601)
+RAW_ROWS = (1500, 1503)
+# the ViT's attention: ViT-B/32 (S = 50) at the embed's batch of 16 and its
+# tail batches (2402 mod 16 = 2, 601 mod 16 = 9); ViT-B/16 (S = 197)
+VIT_ATTN_SHAPES = ((16, 12, 50, 64), (2, 12, 50, 64), (9, 12, 50, 64), (16, 12, 197, 64))
+# the image towers, card against CPU: the 2-layer BERT check's tolerance
+EMBED_TOL = dict(rtol=1e-3, atol=1e-4)
 ROW = ("train_loss", "train_acc", "test_loss", "test_acc", "f1")  # run_epoch's numbers
 SYNC_API = re.compile(r"cuda(Memcpy|Memset|StreamSynchronize|DeviceSynchronize|EventSynchronize"
                       r"|Malloc|Free)")
@@ -538,6 +556,39 @@ def check_grouped_attention(torch, A, gen, dev, G=2):
         print(f"  {(B, H, S, D)} {name} G = {G}, p = {ATTN_DROP}: max|out - plain| "
               f"{err[('attn_fwd', name)]:.3g}, max|grad - plain| {err[('attn_bwd', name)]:.3g}; "
               f"forward and gradients equal {G} G = 1 calls, bit for bit")
+    return err
+
+
+def vit_qkv(torch, gen, dev, B, H, S, D):
+    """q, k, v as the ViT passes them: (B, H, S, D) views of one packed
+    (B, S, 3 H D) f32 projection, no copy."""
+    W = H * D
+    qkv = torch.randn(B, S, 3 * W, generator=gen, device=dev)
+    return [qkv[..., i * W:(i + 1) * W].reshape(B, S, H, D).transpose(1, 2) for i in range(3)]
+
+
+def check_vit_attention(torch, A, gen, dev):
+    """``attn_fwd`` against ``attention_plain`` at the ViT's shapes
+    (``VIT_ATTN_SHAPES``), f32, a zero key bias, p = 0, within the JAX
+    attention tests' rtol 1e-4 / atol 1e-5; the tower's ``vit.attention``
+    equal to the kernel bit for bit. Returns ``{(B, H, S, D): max |kernel -
+    plain|}``."""
+    from eeg_multimodal_torch.models import vit
+
+    err = {}
+    for B, H, S, D in VIT_ATTN_SHAPES:
+        q, k, v = vit_qkv(torch, gen, dev, B, H, S, D)
+        bias = torch.zeros(B, S, device=dev)
+        seed = torch.zeros(1, dtype=torch.int64, device=dev)
+        out, _ = A.attn_fwd(q, k, v, bias, seed, 0.0)
+        plain = A.attention_plain(q, k, v, bias)
+        torch.testing.assert_close(out, plain, **ATTN_TOL["f32_fwd"])
+        err[(B, H, S, D)] = float((out - plain).abs().max())
+        with torch.inference_mode():
+            check(torch.equal(vit.attention(q, k, v), out), "the tower's attention is not the "
+                                                            "kernel's")
+        print(f"  {(B, H, S, D)} f32 p=0, zero bias, packed-QKV views: max|out - plain| "
+              f"{err[(B, H, S, D)]:.3g}")
     return err
 
 
@@ -1530,6 +1581,287 @@ def run_legacy(torch, dev, rng, all_kernels, layers, steps):
     torch.cuda.empty_cache()
 
 
+def run_embedding(torch, dev, all_kernels, layers):
+    """Main path 8, raw rows to a trained model, at full width: raw task
+    txt files of ``RAW_ROWS`` rows made with numpy (integer features, binary
+    labels, EEG values whose text stays within BERT's 80-token cut) through
+    ``process``; ``GetEmbedding(["act", "EEG"], ["train", "test"]).run``
+    with CLIP ViT-B/32 and ResNet-34 at 224 x 224 and the uncased
+    (recovered) and cased (synthetic) tokenizers, its ``attn_fwd`` launches
+    held to 12 per chunk of 16 rows and no other kernel, images/s per tower,
+    every token row of the C++ engine against the Python engine; ViT-B/16
+    on the test split; both towers card against CPU on 4 images and against
+    the written features; a ViT-B/32 chunk profiled; then one epoch of the
+    flagship (f32, fused DP) through ``TrainAndTest.train`` from the tree
+    written, held to its launches. Returns the embed's ``attn_fwd``
+    launches by tower."""
+    from eeg_multimodal_torch import native
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.data import image_transform as IT
+    from eeg_multimodal_torch.data import process
+    from eeg_multimodal_torch.data.embedding import (ENCODE_BATCH, INIT_SEED, GetEmbedding,
+                                                     standardize_coef)
+    from eeg_multimodal_torch.data.tokenizer import MAX_LEN, serialize_row
+    from eeg_multimodal_torch.models import resnet, vit
+    from eeg_multimodal_torch.ops import attention as A
+    from eeg_multimodal_torch.train.api import TrainAndTest
+    from eeg_multimodal_torch.utils.trees import tree_map
+
+    phase("main path 8: raw rows -> process -> GetEmbedding (CLIP ViT-B/32, ResNet-34, "
+          "WordPiece) -> TrainAndTest, full width")
+    check(native.available(), f"the native WordPiece is not available: {native.build_error()}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_embed_")
+    os.makedirs(os.path.join(root, "raw"))
+    rng = np.random.RandomState(8)
+    raws = []
+    for i, n in enumerate(RAW_ROWS):  # time, 25 motion channels, 30 EEG channels, a label
+        data = np.concatenate([np.arange(n)[:, None], rng.randint(-2048, 2048, (n, 25)),
+                               rng.randint(-300, 300, (n, 30)), rng.randint(0, 2, (n, 1))],
+                              axis=1)
+        raws.append(os.path.join(root, "raw", f"task_{i + 1}.txt"))
+        np.savetxt(raws[-1], data, fmt="%.1f")
+    processed = os.path.join(root, "data", "processed")
+    t0 = time.perf_counter()
+    process.process(raws, processed)
+    n_rows = {s: len(D.load_label_csv(os.path.join(processed, f"{s}_label.csv")))
+              for s in ("train", "test")}
+    print(f"  process: {sum(RAW_ROWS)} raw rows in {len(raws)} task files, "
+          f"{time.perf_counter() - t0:.2f} s -> {sorted(os.listdir(processed))}; rows {n_rows}")
+    check(n_rows == {"train": 2402, "test": 601}, f"the split {n_rows}")
+
+    def csv(split, modal):
+        return os.path.join(processed, f"{split}_{modal}.csv")
+
+    def timed_towers(job):
+        """Time each of ``job``'s img_encode calls (each ends in its one
+        device-to-host copy) and count its attn_fwd launches."""
+        calls = []
+        real = job.img_encode
+
+        def img_encode(path, modal, model, coef):
+            before = A.attn_fwd.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(path, modal, model, coef)
+            calls.append((modal, os.path.basename(path).split("_")[0], coef, len(out),
+                          time.perf_counter() - t, A.attn_fwd.launches - before))
+            return out
+
+        job.img_encode = img_encode
+        return calls
+
+    def report(calls, cfg):
+        for modal, split, coef, n, sec, attn in calls:
+            print(f"  {modal} {split} {coef}: {n} images in {sec:.3f} s = {n / sec:.1f} images/s; "
+                  f"attn_fwd {attn}")
+            want = cfg.layers * -(-n // ENCODE_BATCH) if coef.startswith("ViT") else 0
+            check(attn == want, f"{modal} {split} {coef}: attn_fwd {attn}, expected {want}")
+
+    img = [["clip", "ViT-B/32"], ["resnet", "resnet34"]]
+    txt = [["bert", "bert-base-uncased"], ["bert", "bert-base-cased"]]
+    cfg32, cfg16 = vit.ViTConfig.for_coef("ViT-B/32"), vit.ViTConfig.for_coef("ViT-B/16")
+    check((cfg32.seq_len, cfg16.seq_len, cfg32.width, cfg32.heads) == (50, 197, 768, 12),
+          "the towers' widths")
+    job = GetEmbedding(["act", "EEG"], ["train", "test"], data_root=root)
+    calls = timed_towers(job)
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    job.run(img, txt)
+    got = launches_by_name(all_kernels)
+    chunks = {s: -(-n // ENCODE_BATCH) for s, n in n_rows.items()}
+    embed = {"vit_b32": 2 * cfg32.layers * sum(chunks.values())}
+    print(f"  GetEmbedding.run: {time.perf_counter() - t0:.2f} s (the first call of each tower "
+          "includes its random init on the CPU)")
+    report(calls, cfg32)
+    check_launches(got, {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": embed["vit_b32"], "attn_bwd": 0},
+                   "GetEmbedding.run, ViT-B/32 and ResNet-34 over both modals and splits")
+    check(embed["vit_b32"] == 4536 and A.attn_fwd.by_dtype == {"float32": 4536},
+          f"attn_fwd {A.attn_fwd.by_dtype}, not 4536 f32")
+
+    job16 = GetEmbedding(["act", "EEG"], ["test"], data_root=root)
+    calls16 = timed_towers(job16)
+    for k in all_kernels:
+        k.reset()
+    job16.run([["clip", "ViT-B/16"]], [])
+    embed["vit_b16"] = 2 * cfg16.layers * chunks["test"]
+    report(calls16, cfg16)
+    check_launches(launches_by_name(all_kernels), {"dp_fwd": 0, "dp_bwd": 0,
+                                                   "attn_fwd": embed["vit_b16"], "attn_bwd": 0},
+                   "GetEmbedding.run, ViT-B/16 over both modals' test split")
+
+    base = os.path.join(root, "data", "embedding")
+    written = sorted(os.path.relpath(os.path.join(d, f), base)
+                     for d, _, files in os.walk(base) for f in files)
+    check(len(written) == 2 * (2 * 2 + 2 * 2) + 2, f"{len(written)} files written")
+    feats = {}
+    for rel in written:
+        with open(os.path.join(base, rel), "rb") as f:
+            obj = pickle.load(f)
+        n = n_rows[os.path.basename(rel).split(".")[0]]
+        if "/img/" in rel:
+            check(type(obj) is np.ndarray and obj.dtype == np.float32 and obj.shape == (n, 512)
+                  and np.isfinite(obj).all(), f"{rel}: {type(obj)} {getattr(obj, 'shape', '')}")
+            feats[rel] = obj
+            print(f"  wrote {rel}: {obj.shape} float32, |x| max {np.abs(obj).max():.4g}")
+        else:
+            check(len(obj) == n and all(
+                sorted(e) == ["attention_mask", "input_ids"] and all(
+                    type(a) is np.ndarray and a.dtype == np.int32 and a.shape == (MAX_LEN,)
+                    for a in e.values()) for e in obj), f"{rel}: not {n} int32 token rows")
+            print(f"  wrote {rel}: {n} rows of int32 (512,) input_ids and attention_mask")
+
+    t0 = time.perf_counter()
+    longest, rows_checked = {}, 0
+    for modal in ("act", "EEG"):
+        for split in n_rows:
+            texts = [serialize_row(int(v) for v in row) for row in D.load_feature_csv(csv(split,
+                                                                                        modal))]
+            for model, coef in txt:
+                path = os.path.join(base, modal, "txt", f"{model}_{standardize_coef(coef)}",
+                                    f"{split}.pickle")
+                tok = D.load_bert_pickle(path)
+                py_ids, py_mask = job.tokenizer_for_coef(coef).encode_batch(texts, MAX_LEN)
+                check(np.array_equal(tok["input_ids"], py_ids)
+                      and np.array_equal(tok["attention_mask"], py_mask),
+                      f"{modal} {split} {coef}: the native engine's tokens differ from Python's")
+                rows_checked += len(texts)
+                key = (modal, coef)
+                longest[key] = max(longest.get(key, 0), int(py_mask.sum(1).max()))
+    print(f"  the C++ WordPiece's ids and masks equal the Python engine's on all "
+          f"{rows_checked} rows ({time.perf_counter() - t0:.2f} s for the Python engine); "
+          f"longest texts {longest}")
+    check(64 < longest[("EEG", "bert-base-uncased")] <= 80,
+          "the EEG text does not cut to BERT's S = 80")
+
+    phase("reference check: CLIP ViT-B/32 and ResNet-34 on 4 images, card against CPU and "
+          "against the written features")
+    rows = {m: D.load_feature_csv(csv("test", m))[:2] for m in ("act", "EEG")}
+    imgs = torch.cat([IT.act_to_images(torch.from_numpy(rows["act"])),
+                      IT.eeg_to_images(torch.from_numpy(rows["EEG"]))])
+    on_card = torch.cat([IT.act_to_images(torch.from_numpy(rows["act"]).to(dev)),
+                         IT.eeg_to_images(torch.from_numpy(rows["EEG"]).to(dev))]).cpu()
+    check(torch.equal(on_card[:2], imgs[:2]), "the act images differ between card and CPU")
+    torch.testing.assert_close(on_card[2:], imgs[2:], rtol=1e-5, atol=1e-6)
+    towers = (("ViT-B/32", "clip_ViT_B_32", cfg32.layers,
+               lambda p, x: vit.encode_image(p, x, cfg32),
+               vit.init(torch.Generator().manual_seed(INIT_SEED), cfg32, "cpu")),
+              ("ResNet-34", "resnet_resnet34", 0, resnet.features,
+               resnet.init(torch.Generator().manual_seed(INIT_SEED), "cpu")))
+    cpu_vit = towers[0][4]
+    for name, sub, attn, fn, params in towers:
+        before = A.attn_fwd.launches
+        with torch.inference_mode():
+            card = fn(tree_map(lambda t: t.to(dev), params), imgs.to(dev)).cpu()
+            cpu = fn(params, imgs)
+        check(A.attn_fwd.launches - before == attn, f"{name}: attn_fwd launched "
+                                                    f"{A.attn_fwd.launches - before} times")
+        wrote = torch.from_numpy(np.concatenate([feats[f"{m}/img/{sub}/test.pickle"][:2]
+                                                 for m in ("act", "EEG")]))
+        torch.testing.assert_close(card, cpu, **EMBED_TOL)
+        torch.testing.assert_close(wrote, cpu, **EMBED_TOL)
+        print(f"  {name}: (4, 512) max|card - cpu| {float((card - cpu).abs().max()):.3g}, "
+              f"max|written - cpu| {float((wrote - cpu).abs().max()):.3g} (|cpu| max "
+              f"{float(cpu.abs().max()):.4g}); attn_fwd {attn}")
+    del towers
+
+    phase("profile: one ViT-B/32 chunk of 16 act rows (images and tower; device time by kind, "
+          "host launches)")
+    p32 = tree_map(lambda t: t.to(dev), cpu_vit)
+    chunk = torch.from_numpy(D.load_feature_csv(csv("train", "act"))[:ENCODE_BATCH]).to(dev)
+
+    def encode():
+        with torch.inference_mode():
+            return vit.encode_image(p32, IT.act_to_images(chunk), cfg32)
+
+    ev_ms = time_ms(torch, encode, 20, 5)
+    host = {}
+    by_kernel = device_us(torch, encode, n=20, host=host)
+    total = sum(by_kernel.values())
+    kinds = {"GEMMs": sum(v for k, v in by_kernel.items() if GEMM.search(k)),
+             "attention": sum(v for k, v in by_kernel.items() if "attn_" in k),
+             "layer norms": sum(v for k, v in by_kernel.items() if "layer_norm" in k)}
+    kinds["the rest"] = total - sum(kinds.values())
+    launched = sum(c for k, (c, _) in host.items() if LAUNCH_API.match(k))
+    print(f"  {ev_ms:.3f} ms a chunk (CUDA events) = {ENCODE_BATCH / ev_ms * 1e3:.1f} images/s; "
+          f"device {total:.1f} us: " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+          + f"; idle share {max(0.0, 1 - total / (ev_ms * 1e3)):.3f}; {launched:.0f} host "
+          "kernel launches a chunk; top kernels (us):")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us:9.1f}  {name[:90]}")
+    del p32, cpu_vit, job, job16
+
+    phase("main path 8: TrainAndTest(data_root=<the tree>, epochs=1).train(ti, "
+          "lapacian_dropout, bert-base-uncased, clip ViT-B/32), f32, fused DP, 2402 / 601 rows")
+
+    class FusedDP(TrainAndTest):
+        def run_configs(self, fusion_cfg, train_cfg):
+            return dataclasses.replace(fusion_cfg, fused_dp_kernel=True), train_cfg
+
+    api = FusedDP(compute_dtype="float32", data_root=root, epochs=1, echo=False)
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    res = api.train("DPMLD", "embed/", "ti", "lapacian_dropout", "bert", "bert-base-uncased",
+                    "clip", "ViT-B/32", "double_stream", EPS)
+    sec = time.perf_counter() - t0
+    steps = -(-n_rows["train"] // api.batch_size)
+    got = launches_by_name(all_kernels)
+    print_rows(res["history"], steps)
+    print(f"  {sec:.2f} s for the call (loading and init included), {steps} steps")
+    check_launches(got, {"dp_fwd": 2 * steps + 1, "dp_bwd": 2 * steps,
+                         "attn_fwd": layers * (2 * steps + 1), "attn_bwd": layers * steps},
+                   "one epoch from the written tree")
+    check(all(set(k.by_dtype) == {"float32"} for k in all_kernels), "not all f32 launches")
+    row = res["history"][0]
+    check(all(math.isfinite(row[k]) for k in ROW) and 0.0 <= row["f1"] <= 1.0, f"row {row}")
+    check(float(api.trainer.params["DP"].abs().max()) > 0, "DP did not train")
+    del api
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return embed
+
+
+def time_vit_attention(torch, A, gen, dev, embed, vit_err):
+    """The attention forward at the ViT's full batches, S = 50 and 197 (f32,
+    zero bias, p = 0): CUDA-event and device times against the bound,
+    ``attention_plain`` and SDPA; rows of the kernels line."""
+    import torch.nn.functional as TF
+
+    rows = []
+    for name, shape, launches in (("attn_fwd_vit_b32", (16, 12, 50, 64), embed["vit_b32"]),
+                                  ("attn_fwd_vit_b16", (16, 12, 197, 64), embed["vit_b16"])):
+        B, H, S, D = shape
+        q, k, v = vit_qkv(torch, gen, dev, B, H, S, D)
+        bias = torch.zeros(B, S, device=dev)
+        seed = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def kern():
+            return A.attn_fwd(q, k, v, bias, seed, 0.0)
+
+        def plain():
+            return A.attention_plain(q, k, v, bias)
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(q, k, v, attn_mask=bias[:, None, None, :])
+
+        t = {"kernel": time_ms(torch, kern, 50, 5), "plain": time_ms(torch, plain, 50, 5),
+             "sdpa": time_ms(torch, sdpa, 50, 5)}
+        dev_t = {"kernel": sum(device_us(torch, kern, 10).values()),
+                 "sdpa": sum(device_us(torch, sdpa, 10).values())}
+        bms, by = attn_bound_ms("attn_fwd", B, H, S, D, 4)
+        print(f"  {shape}: " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in t.items())
+              + f" (CUDA events); device time kernel {dev_t['kernel']:.1f} us, SDPA "
+              f"{dev_t['sdpa']:.1f} us; bound (3xTF32) {bms * 1e3:.2f} us ({by})")
+        rows.append({
+            "name": name, "route": ROUTES["attn_fwd"], "source": SOURCES["attn_fwd"],
+            "replaces": REPLACES["attn_fwd"], "launches": launches,
+            "max_abs_err": vit_err[shape], "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": bms, "bound_by": by, "library_ms": t["sdpa"],
+        })
+    return rows
+
+
 # cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
 # *_simt_sgemm_*, *_f32f32_*_ffma_*, gemv and gemmSN its CUDA-core ones
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
@@ -1668,6 +2000,7 @@ def main():
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
     err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D), dpsgd_batches()))
+    vit_err = check_vit_attention(torch, A, gen, dev)
     for G in (2, 5):  # the paired phase encode's 2B forward; the 5-member sweep's rows
         print(f"  G = {G} max errors: " + ", ".join(
             f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(
@@ -2160,6 +2493,7 @@ def main():
     run_drivers(torch, dev, rng, all_kernels, layers, steps)
     launches_sweep = run_sweep(torch, dev, rng, all_kernels, layers, steps)
     run_legacy(torch, dev, rng, all_kernels, layers, steps)
+    embed = run_embedding(torch, dev, all_kernels, layers)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
@@ -2433,6 +2767,9 @@ def main():
                     "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
                     "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
                 })
+
+    phase("timing: attention forward at the ViT's shapes, f32, zero bias, p = 0 (main path 8)")
+    kernels += time_vit_attention(torch, A, gen, dev, embed, vit_err)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -53,6 +53,27 @@ def load_embedding_pickle(path: str) -> np.ndarray:
     return np.asarray(arr, np.float32)
 
 
+def load_eeg_feature_csv(path: str):
+    """Legacy feature/{train,test}_EEG.csv: columns 'EEG' (space-joined ints)
+    and 'label' (ref: data.py:10-13). Returns (texts, labels)."""
+    import csv
+
+    texts, labels = [], []
+    with open(path) as f:
+        for row in csv.DictReader(f):
+            texts.append(row["EEG"])
+            lab = row.get("label", "")
+            labels.append(0 if lab in ("", "nan") else int(float(lab)))
+    return texts, np.asarray(labels, np.int32)
+
+
+def load_feature_csv(path: str) -> np.ndarray:
+    """Processed per-channel CSV (train_EEG.csv / train_act.csv with channel
+    headers, ``data/process.py``'s output). Returns (N, C) float32; a
+    one-row file gives (1, C)."""
+    return np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float32, ndmin=2)
+
+
 @dataclasses.dataclass
 class MultiModalArrays:
     """Whole-split host arrays for one (eeg_repr, act_repr) pairing."""

@@ -26,6 +26,7 @@ import numpy as np
 
 from ..data import datasets as D
 from ..data.compact_vocab import build_compact_vocab, remap_pairing
+from ..data.embedding import standardize_coef
 from ..dp.dpsgd import DPSGDConfig
 from ..models import fusion
 from ..models.bert import BertConfig
@@ -35,11 +36,6 @@ from . import metrics as M
 from .checkpoint import load_torch_checkpoint
 from .dpsgd_trainer import DPSGDTrainer
 from .trainer import StepFunctions, TrainConfig, Trainer
-
-
-def standardize_coef(coef: str) -> str:
-    """'ViT-B/32' -> 'ViT_B_32' (base_train.py:74-75)."""
-    return coef.replace("/", "_").replace("-", "_")
 
 
 class TrainAndTest:

@@ -24,8 +24,9 @@ of kernel launches a step, whatever M (``MemberSteps``).
 - An epoch runs with no host sync; its (M, 5) row is fetched once.
 - The faithful alternating step (f32, or bf16 with the in-step cast or
   ``precast_params`` and bf16 moments) of every class and ``dp_mode`` that
-  ``StepFunctions`` trains. The three fast modes and ``mesh=`` are refused
-  (ROADMAP.md, queue 1).
+  ``StepFunctions`` trains, TICA_DPSGD's class with the single-optimizer
+  step (no ``DP`` leaf), as the JAX package's sweep trains it. The three
+  fast modes and ``mesh=`` are refused (ROADMAP.md, queue 1).
 
 Memory: a BERT-base member holds 0.44 GB of f32 params, as much again per
 f32 Adam moment and for its gradient; grids larger than
@@ -107,9 +108,10 @@ class SweepRunner:
             raise ValueError(
                 f"SweepRunner runs the faithful step; {fast} under the sweep is ROADMAP.md "
                 "queue 1, item 17 (the JAX package's sweep callers run the faithful step)")
-        if fusion_cfg.dp_mode in ("DPSGD", "pri_gumbel"):
-            raise ValueError(f"SweepRunner trains the classes of StepFunctions, not "
-                             f"dp_mode={fusion_cfg.dp_mode!r}")
+        if fusion_cfg.dp_mode == "pri_gumbel":
+            # fusion.apply refuses the PriGumbel head, as the JAX package's does
+            raise ValueError("SweepRunner trains the classes of fusion.apply, not "
+                             "dp_mode='pri_gumbel'")
         self.fusion_cfg = fusion_cfg
         self.train_cfg = train_cfg
         self.members = list(members)

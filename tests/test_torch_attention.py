@@ -25,6 +25,17 @@ GRAD_TOL = dict(rtol=2e-3, atol=1e-4)
 NEG = np.finfo(np.float32).min
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_inputs(B, H, S, D=64, seed=0):
     """q, k, v, a cotangent (B, H, S, D) and a (B, 1, S) bias with a partly
     masked row, as numpy."""

@@ -45,6 +45,17 @@ B, EPS = 4, 0.5
 BF16 = dict(compute_dtype="bfloat16", adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(fused=False):
     jc = dataclasses.replace(JF.config_for("ti", "lapacian_dropout"),
                              bert_config=JB.BertConfig(**TINY), fused_dp_kernel=fused)

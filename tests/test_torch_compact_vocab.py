@@ -22,6 +22,17 @@ from test_torch_api import JCFG, PCFG, port_params, rows, weights  # noqa: F401
 EPS = 0.5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_build_and_remap_give_the_jax_arrays():
     rng = np.random.RandomState(0)
     streams = [rng.randint(0, 30522, (6, 20)).astype(np.int32), np.int32([[101, 7, 102, 0]])]

@@ -16,6 +16,17 @@ from eeg_multimodal_torch.ops.optim import Adam
 from eeg_multimodal_torch.train import metrics as TM
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def streams(n, s=48, longest=33, seed=0):
     rng = np.random.RandomState(seed)
     ids = rng.randint(0, 100, (n, s)).astype(np.int32)

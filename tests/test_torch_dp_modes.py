@@ -28,6 +28,17 @@ QS = np.linspace(0.05, 0.95, 19)
 N_DRAWS = 1 << 18
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def gen(seed=0):
     return torch.Generator().manual_seed(seed)
 

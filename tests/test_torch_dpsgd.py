@@ -55,6 +55,17 @@ PCFG = dataclasses.replace(TF.config_for("ti", "DPSGD"), bert_config=TB.BertConf
 SMOKE_SIGMA = 1.9441650390624998
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rows(n, seed):
     """``n`` ti rows of S = 8 tokens (two of them padded), made with numpy."""
     rng = np.random.RandomState(seed)

@@ -22,6 +22,17 @@ TINY = TB.BertConfig(vocab_size=50, num_layers=1, intermediate_size=64,
                      max_position_embeddings=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", DRIVERS)
 def test_driver_grid_equals_jax(name):
     port, jax_ = getattr(TDRV, name)(device="cpu"), getattr(JDRV, name)()

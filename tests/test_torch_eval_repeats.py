@@ -29,6 +29,17 @@ W = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], np.float32)
 ROW = ("train_loss", "train_acc", "test_loss", "test_acc", "f1")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """One weight set, drawn by the port's init, as numpy."""

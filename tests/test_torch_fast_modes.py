@@ -42,6 +42,17 @@ EXACT = dict(rtol=1e-5, atol=1e-7)  # a rewrite of the same step
 EXACT_PARAMS = dict(rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     """One weight set, drawn by the port's init, as numpy."""

@@ -24,6 +24,17 @@ TINY = dict(vocab_size=50, hidden_size=768, num_layers=1, num_heads=12,
             intermediate_size=64, max_position_embeddings=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(fused):
     jc = dataclasses.replace(JF.config_for("ti", "lapacian_dropout"),
                              bert_config=JB.BertConfig(**TINY), fused_dp_kernel=fused)

@@ -49,7 +49,11 @@ def test_importing_every_port_module_loads_no_jax():
     assert {"eeg_multimodal_torch.ops.dp_fused", "eeg_multimodal_torch.ops.attention",
             "eeg_multimodal_torch.train.api", "eeg_multimodal_torch.dp.dpsgd",
             "eeg_multimodal_torch.train.dpsgd_trainer",
-            "eeg_multimodal_torch.experiments.drivers"} <= set(mods)
+            "eeg_multimodal_torch.experiments.drivers",
+            "eeg_multimodal_torch.data.embedding", "eeg_multimodal_torch.data.tokenizer",
+            "eeg_multimodal_torch.data.process", "eeg_multimodal_torch.data.image_transform",
+            "eeg_multimodal_torch.models.vit", "eeg_multimodal_torch.models.resnet",
+            "eeg_multimodal_torch.native"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,6 +85,40 @@ def test_entry_points_refuse_to_run_without_a_card():
     assert torch.backends.cudnn.allow_tf32 is False
     # bf16 GEMMs accumulate in f32, as preferred_element_type=float32 does there
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+
+
+def test_embedding_entry_points_refuse_to_run_without_a_card():
+    """``GetEmbedding`` and the towers' init and imports take the card by
+    default, as the trainers do; nothing was built for the kernels."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device resolves to it")
+    from eeg_multimodal_torch.data.embedding import GetEmbedding
+    from eeg_multimodal_torch.models import resnet, vit
+    from eeg_multimodal_torch.ops import attention as A
+
+    gen = torch.Generator().manual_seed(0)
+    small = vit.ViTConfig(width=64, layers=1, heads=4)
+    for call in (lambda: GetEmbedding(["act"], ["test"]), lambda: vit.init(gen, small),
+                 lambda: resnet.init(gen), lambda: vit.params_from_jax({}, small),
+                 lambda: resnet.params_from_jax({})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert A._lib.cache_info().currsize == 0
+
+
+def test_the_port_reads_no_file_of_the_jax_package():
+    """Its data and sources are its own copies: no module names a path into
+    ``eeg_multimodal_tpu`` in code (docstrings and comments may cite it)."""
+    bad = []
+    for path in package_files():
+        tree = ast.parse(open(path).read(), path)
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+                and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+        bad += [(path, node.value) for node in ast.walk(tree)
+                if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs and "eeg_multimodal_tpu" in node.value]
+    assert not bad
 
 
 def test_attention_kernel_wrappers_refuse_cpu_tensors():

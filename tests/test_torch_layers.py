@@ -17,6 +17,17 @@ from eeg_multimodal_torch.utils.trees import tree_items, tree_map
 FWD = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_torch(tree):
     return tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)), tree)
 

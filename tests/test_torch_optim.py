@@ -18,6 +18,17 @@ from eeg_multimodal_torch.train.trainer import StepFunctions, TrainConfig
 from test_torch_bf16 import configs
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def shapes():
     return [(16, 8), (8,), (3, 5, 7)]
 

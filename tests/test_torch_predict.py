@@ -34,6 +34,17 @@ PCFG = dataclasses.replace(TF.config_for("ti", "lapacian_dropout"),
                            bert_config=TB.BertConfig(**TINY))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     """A test split in the reference's on-disk layout (base_train.py:77-125)

@@ -162,7 +162,8 @@ def test_member_step_matches_jax_vmap():
         np.testing.assert_allclose(leaf.numpy(), want_leaves[path], err_msg=path, **TOL)
 
 
-# every class and dp_mode the runner trains (config_for's but DP-SGD), the
+# every class and dp_mode the runner trains (config_for's, TICA_DPSGD's class
+# with the single-optimizer step, as the JAX sweep trains it), the
 # flagship's DP block also fused, and the flagship with bf16 Adam moments;
 # the flagship for two epochs of two steps (the states carried across), the
 # fused and bf16-moment cases one of two, the other classes one step
@@ -176,6 +177,7 @@ SWEEP_CASES = [
     ("ti", "NDP", "double_stream", {}),
     ("ti", "lapacian_dropout_equal_weight", "double_stream", {}),
     ("ti", "feature_all_lap", "double_stream", {}),
+    ("ti", "DPSGD", "double_stream", {}),
     ("ti", "lapacian_dropout", "double_stream", {"bf16_moments": True}),
 ]
 
@@ -209,8 +211,9 @@ def test_sweep_equals_each_members_fit(case):
         np.testing.assert_allclose(history(r["history"]), history(alone["history"]),
                                    err_msg=f"epsilon {m.epsilon}", **ROW_TOL)
         assert r["f1_best"] == pytest.approx(alone["f1_best"], abs=1e-5)
+    # NDP, and DPSGD's class outside DP-SGD, draw no noise: epsilon changes nothing
     assert not np.allclose(history(res[0]["history"]), history(res[1]["history"])) or \
-        dp == "NDP"  # NDP draws no noise: epsilon changes nothing
+        dp in ("NDP", "DPSGD")
 
 
 def test_sweep_records_chunks_and_injected_bert(tmp_path, capsys):
@@ -266,6 +269,9 @@ def test_frontier_and_refusals():
         with pytest.raises(ValueError, match="item 17"):
             SweepRunner(tc, TrainConfig(**{mode: True}), privacy_utility_frontier(),
                         device="cpu")
+    with pytest.raises(ValueError, match="pri_gumbel"):  # fusion.apply refuses it
+        SweepRunner(configs(dp="pri_gumbel")[1], TrainConfig(), privacy_utility_frontier(),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(5, 8, 2304), (3, 5, 1001)], ids=str)

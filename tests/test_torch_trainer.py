@@ -35,6 +35,17 @@ TC = dataclasses.replace(TF.config_for("ti", "lapacian_dropout"),
                          bert_config=TB.BertConfig(**TINY), fused_dp_kernel=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def arrays(n, seed):
     rng = np.random.RandomState(seed)
     mask = np.ones((n, S), np.int32)

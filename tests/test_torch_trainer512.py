@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from eeg_multimodal_tpu.models import fusion as JF
@@ -19,6 +20,17 @@ from eeg_multimodal_torch.utils.trees import tree_items
 from test_torch_api import EPS, JCFG, PCFG, port_params, rows, weights  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_faithful_step_at_512_tokens_matches_jax(weights):

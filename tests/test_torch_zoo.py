@@ -61,6 +61,17 @@ CLASSES = [
 TRAINABLE = [c for c in CLASSES if c[1] != "DPSGD"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work. The suite runs
+    several test processes on the same cores, where torch's default of a
+    thread per core makes small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def ids(c):
     return "-".join(c)
 
