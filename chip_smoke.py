@@ -14,7 +14,9 @@ vector of G = 2 over 2B rows and of G = 5 over the sweep's 5 members'
 rows (equal to G calls of G = 1, bit for bit, the forward and backward
 too), the DP kernels with a member axis (equal to M single calls and their
 plain versions, bit for bit), the attention forward at the ViT's shapes
-(S = 50 at 16, 2 and 9 rows, S = 197; zero bias, p = 0); and a 2-layer
+(S = 50 at 16, 2 and 9 rows, S = 197; zero bias, p = 0), both attention
+kernels at path 9's bf16 shapes ((128, 12, 128, 64), p = 0.1, keys padded
+past 65; (128, 12, 50, 64), p = 0, forward and backward; tails of 2); and a 2-layer
 BERT at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
@@ -75,6 +77,16 @@ stochastic rounding on the card. Then drives the main paths at full width
    towers card against CPU on 4 images, a ViT-B/32 chunk profiled, then
    one f32 fused-DP epoch of the flagship through ``TrainAndTest.train``
    from the tree written, which launches all four kernels;
+9. the pretext pipeline from that tree: ``cli distill`` (a seeded stand-in
+   for the real test-split CLIP array, which the repo does not hold) into
+   a new tree; the rendering-inversion ``ContrastivePretrainer`` at
+   ViT-B/32, batch 128, bf16 (both attention kernels, 24 launches a step),
+   its tower re-embedding the images; ``cli pretrain`` with every pretext
+   at BERT-base on the compact vocab, bf16 (12 / 12 a MLM step at (128,
+   12, 128, 64)), then one bf16 DP-MLD epoch at 2402 / 601;
+   ``ResumableTrainer`` resumed against an unbroken run (f32, bit for bit);
+   ``pretrain_finetune``; a MLM and a contrastive step profiled and run
+   under sync debug mode "error";
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -157,6 +169,13 @@ RAW_ROWS = (1500, 1503)
 # the ViT's attention: ViT-B/32 (S = 50) at the embed's batch of 16 and its
 # tail batches (2402 mod 16 = 2, 601 mod 16 = 9); ViT-B/16 (S = 197)
 VIT_ATTN_SHAPES = ((16, 12, 50, 64), (2, 12, 50, 64), (9, 12, 50, 64), (16, 12, 197, 64))
+# main path 9's attention: the MLM pretrainer's BERT-base at batch 128 and
+# S = 128 (build_corpus rounds the longest corpus row up to 128) with keys
+# padded past the committed rows' 65 tokens, bf16, p = 0.1; the contrastive
+# pretrainer's ViT-B/32 in training at batch 128, S = 50, bf16, zero bias,
+# p = 0, forward and backward; each with a tail batch of 2
+MLM_ATTN_SHAPES = ((128, 12, 128, 64), (2, 12, 128, 64))
+VIT_TRAIN_SHAPES = ((128, 12, 50, 64), (2, 12, 50, 64))
 # the image towers, card against CPU: the 2-layer BERT check's tolerance
 EMBED_TOL = dict(rtol=1e-3, atol=1e-4)
 ROW = ("train_loss", "train_acc", "test_loss", "test_acc", "f1")  # run_epoch's numbers
@@ -406,7 +425,8 @@ def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~
 
 def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     """Attention kernels against their plain versions, at the main paths'
-    shapes (8, 12, 80, 64) and (8, 12, 512, 64), the DP-SGD path's
+    shapes (8, 12, 80, 64) and (8, 12, 512, 64), path 9's MLM shapes
+    (``MLM_ATTN_SHAPES``, bf16, the keys past 65 masked), the DP-SGD path's
     (B, 12, 80, 64) f32 for each B of ``dpsgd_bs`` (``dpsgd_batches``: the
     windows at the smoke's and the paper's rows, and the batched eval),
     and (8, 12, S, 64) for each S of ``zoo_seqs`` (the zoo phase's text
@@ -433,7 +453,8 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     cases += [(8, 12, S, 64, dtype) for S in sorted(zoo_seqs)
               for dtype in (torch.float32, torch.bfloat16)
               if (8, 12, S, 64, dtype) not in cases]
-    for B, H, S, D, dtype in cases:
+    mlm = [(*shape, torch.bfloat16) for shape in MLM_ATTN_SHAPES]  # path 9's MLM
+    for B, H, S, D, dtype in cases + mlm:
         f32 = dtype == torch.float32
         fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
         bwd_tol = ATTN_TOL["f32_bwd" if f32 else "bf16"]
@@ -442,6 +463,8 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
         qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         bias = torch.zeros(B, S, device=dev)
+        if (B, H, S, D, dtype) in mlm:  # the corpus rows' padding past 65 tokens
+            bias[:, VALID_TOKENS:] = NEG
         bias[0, S // 2 + 3:] = NEG  # a partly masked row
         if B > 1:
             bias[1] = NEG  # every key masked: the uniform softmax
@@ -571,9 +594,43 @@ def check_vit_attention(torch, A, gen, dev):
     """``attn_fwd`` against ``attention_plain`` at the ViT's shapes
     (``VIT_ATTN_SHAPES``), f32, a zero key bias, p = 0, within the JAX
     attention tests' rtol 1e-4 / atol 1e-5; the tower's ``vit.attention``
-    equal to the kernel bit for bit. Returns ``{(B, H, S, D): max |kernel -
-    plain|}``."""
+    equal to the kernel bit for bit. Then the tower in training, path 9's
+    shapes (``VIT_TRAIN_SHAPES``, bf16): ``attn_fwd`` and ``attn_bwd``
+    against their plain versions at the bf16 tolerance, the ragged S = 50
+    in the backward's 16-query / 64-key tiles, and ``vit.attention``'s
+    autograd gradients equal to ``attn_bwd``'s. Returns ``{(B, H, S, D):
+    max |kernel - plain|}`` (f32 forward) and ``{(kernel, (B, H, S, D)):
+    max |kernel - plain|}`` (bf16)."""
     from eeg_multimodal_torch.models import vit
+
+    train_err = {}
+    for B, H, S, D in VIT_TRAIN_SHAPES:
+        q, k, v = (t.to(torch.bfloat16) for t in vit_qkv(torch, gen, dev, B, H, S, D))
+        W = H * D  # the packed bf16 projection's views, as the bf16 tower passes them
+        qkv = torch.cat([t.transpose(1, 2).reshape(B, S, W) for t in (q, k, v)], dim=-1)
+        q, k, v = (qkv[..., i * W:(i + 1) * W].reshape(B, S, H, D).transpose(1, 2)
+                   for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        seed = torch.zeros(1, dtype=torch.int64, device=dev)
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        out, stats = A.attn_fwd(q, k, v, bias, seed, 0.0)
+        plain = A.attention_plain(q, k, v, bias)
+        torch.testing.assert_close(out.float(), plain.float(), **ATTN_TOL["bf16"])
+        grads = A.attn_bwd(q, k, v, bias, seed, 0.0, out, stats, dout)
+        plain_g = A.attention_bwd_plain(q, k, v, bias, None, 0.0, dout)
+        for name, g, pg in zip("qkv", grads, plain_g):
+            torch.testing.assert_close(g.float(), pg.float(), **ATTN_TOL["bf16"],
+                                       msg=lambda m: f"d{name}: {m}")
+        train_err[("attn_fwd", (B, H, S, D))] = float((out.float() - plain.float()).abs().max())
+        train_err[("attn_bwd", (B, H, S, D))] = max(float((g.float() - pg.float()).abs().max())
+                                                    for g, pg in zip(grads, plain_g))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(vit.attention(*leaves), leaves, dout)
+        check(all(torch.equal(a, g) for a, g in zip(auto, grads)),
+              "the training tower's attention gradients differ from attn_bwd's")
+        print(f"  {(B, H, S, D)} bf16 p=0, zero bias, packed-QKV views, forward and backward: "
+              f"max|out - plain| {train_err[('attn_fwd', (B, H, S, D))]:.3g}, max|grad - plain| "
+              f"{train_err[('attn_bwd', (B, H, S, D))]:.3g}")
 
     err = {}
     for B, H, S, D in VIT_ATTN_SHAPES:
@@ -589,7 +646,7 @@ def check_vit_attention(torch, A, gen, dev):
                                                             "kernel's")
         print(f"  {(B, H, S, D)} f32 p=0, zero bias, packed-QKV views: max|out - plain| "
               f"{err[(B, H, S, D)]:.3g}")
-    return err
+    return err, train_err
 
 
 # the sweep's epsilons (privacy_utility_frontier's default grid)
@@ -1817,9 +1874,311 @@ def run_embedding(torch, dev, all_kernels, layers):
     check(all(math.isfinite(row[k]) for k in ROW) and 0.0 <= row["f1"] <= 1.0, f"row {row}")
     check(float(api.trainer.params["DP"].abs().max()) > 0, "DP did not train")
     del api
+    torch.cuda.empty_cache()
+    return embed, root
+
+
+# main path 9: the distiller's steps (a few hundred of the CLI's 4000), the
+# contrastive and MLM pretrainers' steps, the MLM batch (the CLI's default)
+DISTILL_STEPS, CLIP_STEPS, MLM_STEPS, MLM_BATCH = 300, 20, 40, 128
+# the (601, 512) f32 stand-in for the reference's real test-split CLIP
+# array (feature/action/test_clip_v2.pickle), which the repo does not hold
+STAND_IN_SEED = 601
+
+
+def run_pretext(torch, dev, all_kernels, layers, root):
+    """Main path 9, the pretext pipeline at full width, from path 8's tree
+    ``root`` (2402 / 601 rows): ``cli distill`` (no kernel) into a new tree
+    from a seeded stand-in for the real CLIP array; the rendering-inversion
+    ``ContrastivePretrainer`` at ViT-B/32, batch 128, bf16 (``attn_fwd`` and
+    ``attn_bwd`` 24 a step), its tower pickled and re-embedded through
+    ``GetEmbedding(clip_weights=...)``; ``cli pretrain`` with every pretext
+    at BERT-base on the compact vocab, bf16 (12 / 12 a MLM step at (128,
+    12, 128, 64)), then one DP-MLD epoch at 2402 / 601 (path 8's counts, in
+    bf16); ``ResumableTrainer`` (f32, 64 / 32 rows) resumed against an
+    unbroken run; ``pretrain_finetune`` one epoch a stage. Every count is
+    held to its prediction; the MLM and contrastive steps are profiled and
+    run once under sync debug mode "error". Returns the attention launches
+    by pretrainer."""
+    from eeg_multimodal_torch import cli
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.data import image_transform as IT
+    from eeg_multimodal_torch.data.embedding import GetEmbedding
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.models import vit
+    from eeg_multimodal_torch.train import api, contrastive as C, distill, mlm
+    from eeg_multimodal_torch.train import pipeline as P
+    from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+    from eeg_multimodal_torch.utils.trees import tree_items, tree_map
+
+    def reset():
+        for k in all_kernels:
+            k.reset()
+
+    def by_dtype():
+        return {k.name: dict(k.by_dtype) for k in all_kernels if k.launches}
+
+    out = {}
+    phase("main path 9: cli distill (the act CLIP arrays of the train split from the test "
+          "split's), no kernel")
+    tree9 = os.path.join(root, "pretext_tree")
+    stand_in = os.path.join(root, "test_clip_stand_in.pickle")
+    with open(stand_in, "wb") as f:
+        pickle.dump(np.random.RandomState(STAND_IN_SEED).randn(601, 512).astype(np.float32), f)
+    print(f"  the real CLIP array (feature/action/test_clip_v2.pickle) is not in the repo: a "
+          f"(601, 512) f32 array from numpy seed {STAND_IN_SEED} stands in for it")
+    metrics = []
+    real_build = distill.build_distilled_act_tree
+
+    def build(*a, **kw):
+        metrics.append(real_build(*a, **kw))
+        return metrics[-1]
+
+    distill.build_distilled_act_tree = build
+    reset()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["distill", "--data_root", root, "--out", tree9, "--real_test_pickle",
+                       stand_in, "--steps", str(DISTILL_STEPS)])
+    finally:
+        distill.build_distilled_act_tree = real_build
+    print(f"  cli distill: rc {rc}, {time.perf_counter() - t0:.2f} s for {DISTILL_STEPS} steps "
+          f"x 2 fits; metrics {metrics[0]}")
+    check(rc == 0 and math.isfinite(metrics[0]["val_cosine_mean"]), "distill failed")
+    check_launches(launches_by_name(all_kernels),
+                   {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": 0, "attn_bwd": 0}, "cli distill")
+    save = os.path.join(tree9, "data", "embedding", "act", "img", "clip_ViT_B_32")
+    for split, n in (("train", 2402), ("test", 601)):
+        with open(os.path.join(save, f"{split}.pickle"), "rb") as f:
+            arr = pickle.load(f)
+        check(type(arr) is np.ndarray and arr.dtype == np.float32 and arr.shape == (n, 512)
+              and np.isfinite(arr).all(), f"distilled {split}: {getattr(arr, 'shape', arr)}")
+        print(f"  wrote act/img/clip_ViT_B_32/{split}.pickle: {arr.shape} float32")
+
+    phase("main path 9: ContrastivePretrainer, ViT-B/32 (width 768, 12 layers), batch 128, "
+          f"bf16, {CLIP_STEPS} steps")
+    proc = os.path.join(tree9, "data", "processed")
+    eeg_rows = D.load_feature_csv(os.path.join(proc, "train_EEG.csv"))
+    act_rows = D.load_feature_csv(os.path.join(proc, "train_act.csv"))
+    ccfg = C.ContrastiveConfig(total_steps=CLIP_STEPS, log_every=10, warmup_steps=5)
+    vcfg = vit.ViTConfig()
+    check((ccfg.batch_size, ccfg.compute_dtype, vcfg.width, vcfg.layers, vcfg.seq_len)
+          == (128, "bfloat16", 768, 12, 50), "not the full-width contrastive configuration")
+    pre = C.ContrastivePretrainer(vcfg, ccfg, eeg_dim=eeg_rows.shape[1],
+                                  act_dim=act_rows.shape[1])
+    conv0 = pre.params["vit"]["conv"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    tower, hist = pre.fit(eeg_rows, act_rows, echo=False)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out["clip"] = launches_by_name(all_kernels)
+    print(f"  {sec:.2f} s for {CLIP_STEPS} steps ({sec / CLIP_STEPS * 1e3:.1f} ms a step with "
+          f"the first's warm-up, {CLIP_STEPS * 2 * ccfg.batch_size / sec:.1f} images/s); history "
+          f"{hist}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; by dtype "
+          f"{by_dtype()}")
+    per = 2 * vcfg.layers * CLIP_STEPS  # two tower passes a step, a launch a layer each
+    check_launches(out["clip"], {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": per, "attn_bwd": per},
+                   "ContrastivePretrainer.fit")
+    check(attention_dtypes(all_kernels) == {"bfloat16"},
+          "the bf16 tower launched another dtype")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"non-finite loss {hist}")
+    check(not torch.equal(tower["conv"], conv0), "the tower did not change")
+
+    phase("profile: one contrastive step (batch 128, both towers, bf16)")
+    n = eeg_rows.shape[0]
+    rows = {"eeg": torch.as_tensor(eeg_rows, device=dev),
+            "act": torch.as_tensor(act_rows, device=dev)}
+    rows["eeg_t"], rows["act_t"] = C.standardize(rows["eeg"]), C.standardize(rows["act"])
+    g = torch.Generator(device=dev).manual_seed(9)
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(torch, lambda: pre.step(rows, torch.randint(0, n, (128,), generator=g,
+                                                             device=dev)),
+                 "contrastive step", work="2 tower forwards + backward")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    no_sync_step(torch, lambda: pre.step(rows, torch.randint(0, n, (128,), generator=g,
+                                                             device=dev)), "contrastive")
+
+    phase("main path 9: the pretrained tower through GetEmbedding(clip_weights=...), "
+          "ViT-B/32, both modals and splits")
+    tower_path = os.path.join(root, "vit_clip.pickle")
+    with open(tower_path, "wb") as f:
+        pickle.dump(tree_map(lambda t: t.detach().cpu().numpy(), tower), f)
+    del pre, rows
+    reset()
+    t0 = time.perf_counter()
+    GetEmbedding(["act", "EEG"], ["train", "test"], data_root=tree9,
+                 clip_weights=tower_path).get_img_encode([["clip", "ViT-B/32"]])
+    chunks = -(-2402 // 16) + -(-601 // 16)
+    check_launches(launches_by_name(all_kernels), {"dp_fwd": 0, "dp_bwd": 0,
+                                                   "attn_fwd": 2 * 12 * chunks, "attn_bwd": 0},
+                   "GetEmbedding with the pretrained tower")
+    print(f"  {time.perf_counter() - t0:.2f} s")
+    for modal in ("act", "EEG"):
+        with open(os.path.join(tree9, "data", "embedding", modal, "img", "clip_ViT_B_32",
+                               "test.pickle"), "rb") as f:
+            feats = pickle.load(f)
+        check(feats.shape == (601, 512) and np.isfinite(feats).all(), f"{modal} features")
+        with torch.inference_mode():
+            rows2 = torch.from_numpy(D.load_feature_csv(os.path.join(
+                proc, f"test_{modal}.csv"))[:4]).to(dev)
+            to_img = IT.act_to_images if modal == "act" else IT.eeg_to_images
+            want = vit.encode_image(tree_map(lambda t: t.to(dev), tower), to_img(rows2),
+                                    vcfg).cpu().numpy()
+        np.testing.assert_allclose(feats[:4], want, **EMBED_TOL)
+        print(f"  {modal} test features (601, 512) equal the tower's own on 4 rows "
+              f"(max diff {np.abs(feats[:4] - want).max():.3g})")
+
+    phase(f"main path 9: cli pretrain, BERT-base on the compact vocab, bf16, every pretext, "
+          f"{MLM_STEPS} MLM steps at batch {MLM_BATCH}, then one DP-MLD epoch at 2402 / 601")
+    run9 = os.path.join(root, "mlm_run")
+    seen = {"losses": []}
+    real_fit, real_step = mlm.MLMPretrainer.fit, mlm.MLMPretrainer.step
+    real_train_on = api.TrainAndTest.train_on
+
+    def step(self, *a, **kw):  # keeps each step's loss, a device scalar: no sync
+        seen["losses"].append(real_step(self, *a, **kw))
+        return seen["losses"][-1]
+
+    def fit(self, *a, **kw):
+        seen["pre"], seen["fit"] = self, (a, kw)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = real_fit(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["mlm_s"], seen["mlm_peak"] = time.perf_counter() - t, torch.cuda.max_memory_allocated()
+        return res
+
+    def train_on(self, *a, **kw):
+        seen["mlm_launches"], seen["mlm_dtypes"] = launches_by_name(all_kernels), by_dtype()
+        seen["fine_t0"] = time.perf_counter()
+        reset()
+        return real_train_on(self, *a, **kw)
+
+    mlm.MLMPretrainer.fit, mlm.MLMPretrainer.step = fit, step
+    api.TrainAndTest.train_on = train_on
+    reset()
+    try:
+        rc = cli.main(["pretrain", "--data_root", tree9, "--out", run9, "--mlm_steps",
+                       str(MLM_STEPS), "--mlm_batch", str(MLM_BATCH), "--epochs", "1",
+                       "--row_reg_weight", "1.0", "--aug_factor", "1", "--whole_word",
+                       "--clip_weight", "0.5"])
+    finally:
+        mlm.MLMPretrainer.fit, mlm.MLMPretrainer.step = real_fit, real_step
+        api.TrainAndTest.train_on = real_train_on
+    fine_s = time.perf_counter() - seen["fine_t0"]
+    pre9 = seen["pre"]
+    corpus_ids = seen["fit"][0][0]
+    print(f"  cli pretrain: rc {rc}; MLM corpus {corpus_ids.shape} (S = "
+          f"{corpus_ids.shape[1]}), compact vocab {pre9.bert_cfg.vocab_size}, BERT "
+          f"{pre9.bert_cfg.num_layers} layers x {pre9.bert_cfg.hidden_size}; MLM "
+          f"{seen['mlm_s']:.2f} s ({seen['mlm_s'] / MLM_STEPS * 1e3:.1f} ms a step with the "
+          f"first's warm-up, {MLM_STEPS * MLM_BATCH * corpus_ids.shape[1] / seen['mlm_s']:.0f} "
+          f"tokens/s), peak {seen['mlm_peak'] / 2**30:.2f} GiB; the fine-tune {fine_s:.2f} s")
+    check(rc == 0, f"cli pretrain returned {rc}")
+    check(corpus_ids.shape == (4 * 2402, 128) and pre9.bert_cfg.num_layers == 12
+          and pre9.bert_cfg.hidden_size == 768 and pre9.cfg.compute_dtype == "bfloat16"
+          and pre9.cfg.row_reg_weight and pre9.cfg.whole_word and pre9.cfg.clip_weight,
+          "not the full-width MLM configuration with every pretext")
+    out["mlm"] = seen["mlm_launches"]
+    check_launches(out["mlm"], {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": layers * MLM_STEPS,
+                                "attn_bwd": layers * MLM_STEPS}, "the MLM stage")
+    check(seen["mlm_dtypes"] == {"attn_fwd": {"bfloat16": layers * MLM_STEPS},
+                                 "attn_bwd": {"bfloat16": layers * MLM_STEPS}},
+          f"MLM dtypes {seen['mlm_dtypes']}")
+    steps = -(-2402 // 8)
+    check_launches(launches_by_name(all_kernels),
+                   {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": layers * (2 * steps + 1),
+                    "attn_bwd": layers * steps}, "the DP-MLD fine-tune epoch (bf16, composed DP)")
+    check(attention_dtypes(all_kernels) == {"bfloat16"},
+          "the bf16 fine-tune launched f32 attention")
+    with open(os.path.join(run9, "mlm_history.json")) as f:
+        hist = json.load(f)
+    losses = torch.stack(seen["losses"]).tolist()
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"  mlm_history.json {hist}; the loss's first 5 steps {head:.4f}, last 5 {tail:.4f}")
+    check(len(losses) == MLM_STEPS and all(map(math.isfinite, losses)), "MLM losses")
+    check(len(hist) == 1 and math.isfinite(hist[0]["loss"]), "MLM history")
+    check(tail < head, f"the MLM loss did not fall: {head:.4f} -> {tail:.4f}")
+    for name in ("bert_mlm.pickle", "compact_vocab.npz",
+                 "logs/demo/DPMLD/whole_record.txt"):
+        check(os.path.exists(os.path.join(run9, name)), f"{name} not written")
+
+    phase("profile: one MLM step (batch 128, S = 128, BERT-base, bf16, every pretext)")
+    a, kw = seen["fit"]
+    corpus = pre9.corpus_on_device(a[0], a[1], kw["corpus_vals"], kw["corpus_val_mask"],
+                                   kw["corpus_word_start"], kw["corpus_clip"])
+    g = torch.Generator(device=dev).manual_seed(10)
+    torch.cuda.reset_peak_memory_stats()
+    profile_step(torch, lambda: pre9.step(corpus, g), "MLM step",
+                 work="1 forward + 1 backward")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    no_sync_step(torch, lambda: pre9.step(corpus, g), "MLM")
+    del corpus, pre9, seen
+
+    phase("main path 9: ResumableTrainer (f32 flagship, 64 / 32 rows): 1 epoch, resumed to 2, "
+          "against an unbroken 2-epoch run")
+    rng = np.random.RandomState(9)
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    fc = fusion.config_for("ti", "lapacian_dropout")
+    log = os.path.join(root, "resumable")
+    s8 = N_TRAIN // 8
+    epoch = {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": layers * (2 * s8 + 1), "attn_bwd": layers * s8}
+    for epochs in (1, 2):  # the second run resumes from the first's train_state.pickle
+        reset()
+        resumed = P.ResumableTrainer(fc, TrainConfig(epochs=epochs))
+        res = resumed.fit(train, test, EPS, log_path=log, echo=False)
+        check([r["epoch"] for r in res["history"]] == [epochs], f"resumable run {epochs}")
+        check_launches(launches_by_name(all_kernels), epoch, f"ResumableTrainer to {epochs}")
+    reset()
+    whole = Trainer(fc, TrainConfig(epochs=2))
+    whole.fit(train, test, EPS, echo=False)
+    check_launches(launches_by_name(all_kernels), {k: 2 * v for k, v in epoch.items()},
+                   "the unbroken 2-epoch fit")
+    worst = 0.0
+    for (path, a_), (_, b_) in zip(tree_items(resumed.params), tree_items(whole.params)):
+        torch.testing.assert_close(a_, b_, rtol=1e-5, atol=1e-6, msg=lambda m: f"{path}: {m}")
+        worst = max(worst, float((a_ - b_).abs().max()))
+    print(f"  resumed params against the unbroken run: max diff {worst:.3g} (bit for bit: "
+          f"{worst == 0.0})")
+    done = P.ResumableTrainer(fc, TrainConfig(epochs=2)).fit(train, test, EPS, log_path=log,
+                                                              echo=False)
+    check(done.get("resumed_complete"), "a finished run was not reported complete")
+    del resumed, whole
+
+    phase("main path 9: pretrain_finetune (NDP, then feature_all_lap), f32, one epoch a stage")
+    reset()
+    pf = P.pretrain_finetune(train, test, os.path.join(root, "pipeline"),
+                             P.PipelineConfig(pretrain_epochs=1, finetune_epochs=1), echo=False)
+    single = {"dp_fwd": 0, "dp_bwd": 0, "attn_fwd": 2 * layers * (s8 + 1),
+              "attn_bwd": 2 * layers * s8}
+    check_launches(launches_by_name(all_kernels), single, "pretrain_finetune")
+    for stage in ("pretrain", "finetune"):
+        row = pf[stage]["history"][0]
+        check(all(math.isfinite(row[k]) for k in ROW), f"{stage} row {row}")
     shutil.rmtree(root)
     torch.cuda.empty_cache()
-    return embed
+    return out
+
+
+def no_sync_step(torch, step, name):
+    """One ``step`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    host sync inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  one {name} step under sync debug mode \"error\": no host sync")
+
+
+def attention_dtypes(all_kernels):
+    """The dtypes of every attention launch since the counts were reset."""
+    return {d for k in all_kernels if k.name.startswith("attn_") for d in k.by_dtype}
 
 
 def time_vit_attention(torch, A, gen, dev, embed, vit_err):
@@ -1859,6 +2218,70 @@ def time_vit_attention(torch, A, gen, dev, embed, vit_err):
             "max_abs_err": vit_err[shape], "ms": t["kernel"], "plain_ms": t["plain"],
             "bound_ms": bms, "bound_by": by, "library_ms": t["sdpa"],
         })
+    return rows
+
+
+def time_pretext_attention(torch, A, gen, dev, pretext, err, vit_train_err):
+    """Both attention kernels, bf16, at path 9's shapes: the MLM's (128,
+    12, 128, 64), p = 0.1, the keys past 65 masked, and the training ViT's
+    (128, 12, 50, 64), p = 0, zero bias: CUDA-event and device times against
+    the bound, the plain versions and SDPA (the backward's as SDPA's
+    forward + backward less its forward); rows of the kernels line."""
+    import torch.nn.functional as TF
+
+    rows = []
+    for tag, (B, H, S, D), rate, launches in (
+            ("mlm", MLM_ATTN_SHAPES[0], ATTN_DROP, pretext["mlm"]),
+            ("vit_train", VIT_TRAIN_SHAPES[0], 0.0, pretext["clip"])):
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        if tag == "mlm":
+            bias[:, VALID_TOKENS:] = NEG
+        bias4 = bias[:, None, None, :]
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev, dtype=torch.bfloat16)
+        seed = torch.tensor([17], dtype=torch.int64, device=dev)
+        out, stats = A.attn_fwd(q, k, v, bias, seed, rate)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def keep():
+            return torch.rand(B, H, S, S, generator=gen, device=dev) < 1 - rate if rate else None
+
+        def fwd():
+            return A.attn_fwd(q, k, v, bias, seed, rate)
+
+        def bwd():
+            return A.attn_bwd(q, k, v, bias, seed, rate, out, stats, dout)
+
+        t = {"fwd": time_ms(torch, fwd, 20, 5), "bwd": time_ms(torch, bwd, 20, 5),
+             "fwd plain": time_ms(torch, lambda: A.attention_plain(q, k, v, bias, keep(), rate),
+                                  10, 3),
+             "bwd plain": time_ms(torch, lambda: A.attention_bwd_plain(q, k, v, bias, keep(),
+                                                                       rate, dout), 10, 3),
+             "fwd sdpa": time_ms(torch, lambda: TF.scaled_dot_product_attention(
+                 q, k, v, attn_mask=bias4, dropout_p=rate), 20, 5),
+             "fwd+bwd sdpa": time_ms(torch, lambda: torch.autograd.grad(
+                 TF.scaled_dot_product_attention(*leaves, attn_mask=bias4, dropout_p=rate),
+                 leaves, dout), 20, 5)}
+        t["bwd sdpa"] = t["fwd+bwd sdpa"] - t["fwd sdpa"]
+        dev_t = {"fwd": sum(device_us(torch, fwd, 10).values()),
+                 "bwd": sum(device_us(torch, bwd, 10).values())}
+        bounds = {n: attn_bound_ms(n, B, H, S, D, 2) for n in ("attn_fwd", "attn_bwd")}
+        print(f"  {tag} {(B, H, S, D)} p={rate}: " + ", ".join(
+            f"{k} {v * 1e3:.1f} us" for k, v in t.items()))
+        print(f"  {tag}: device time fwd {dev_t['fwd']:.1f} us, bwd {dev_t['bwd']:.1f} us; bound "
+              f"(bf16 tensor cores) fwd {bounds['attn_fwd'][0] * 1e3:.2f} us "
+              f"({bounds['attn_fwd'][1]}), bwd {bounds['attn_bwd'][0] * 1e3:.2f} us "
+              f"({bounds['attn_bwd'][1]})")
+        for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
+            e = (err[(name, "bfloat16", (B, H, S, D))] if tag == "mlm"
+                 else vit_train_err[(name, (B, H, S, D))])
+            rows.append({
+                "name": f"{name}_{tag}_bf16", "route": ROUTES[name], "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": e,
+                "ms": t[key], "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
+            })
     return rows
 
 
@@ -2000,7 +2423,7 @@ def main():
     phase("attention kernels against attention_plain / attention_bwd_plain")
     t0 = time.time()
     err.update(check_attention_kernels(torch, A, gen, dev, zoo_seq_lens(D), dpsgd_batches()))
-    vit_err = check_vit_attention(torch, A, gen, dev)
+    vit_err, vit_train_err = check_vit_attention(torch, A, gen, dev)
     for G in (2, 5):  # the paired phase encode's 2B forward; the 5-member sweep's rows
         print(f"  G = {G} max errors: " + ", ".join(
             f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(
@@ -2493,7 +2916,8 @@ def main():
     run_drivers(torch, dev, rng, all_kernels, layers, steps)
     launches_sweep = run_sweep(torch, dev, rng, all_kernels, layers, steps)
     run_legacy(torch, dev, rng, all_kernels, layers, steps)
-    embed = run_embedding(torch, dev, all_kernels, layers)
+    embed, tree = run_embedding(torch, dev, all_kernels, layers)
+    pretext = run_pretext(torch, dev, all_kernels, layers, tree)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
@@ -2770,6 +3194,10 @@ def main():
 
     phase("timing: attention forward at the ViT's shapes, f32, zero bias, p = 0 (main path 8)")
     kernels += time_vit_attention(torch, A, gen, dev, embed, vit_err)
+
+    phase("timing: attention kernels, bf16, at main path 9's shapes (the MLM's and the "
+          "training ViT's)")
+    kernels += time_pretext_attention(torch, A, gen, dev, pretext, err, vit_train_err)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,7 +15,16 @@ Self-attention goes through the attention kernel (``ops/attention.py``,
 0, where ``attention_available`` says so (the ViT-B head width, 64); the JAX
 package runs einsum attention here. q, k and v are strided views of the
 packed (B, S, 3W) projection, as BERT's are: no copy. ``GetEmbedding`` runs
-the tower under ``torch.inference_mode()``.
+the tower under ``torch.inference_mode()``; ``train/contrastive.py`` trains
+it, and then the kernel's backward runs too.
+
+The activations take the dtype of the parameters and images, as in the JAX
+package (vit.py:94-142 there): under a bf16 cast every product and sum is
+bf16, each LayerNorm runs in f32 and casts back to the activations' dtype,
+and the MLP's and output projection's linears accumulate in f32 and round
+once. JAX's einsum attention computes bf16 scores there; the kernel takes
+bf16 q, k, v and computes f32 scores (and the CPU's plain version too), so
+bf16 is held against JAX's own bf16 distance from f32.
 """
 from __future__ import annotations
 
@@ -115,7 +124,9 @@ def attention(q, k, v):
 def _attn(p, x, heads):
     B, S, W = x.shape
     D = W // heads
-    qkv = linear({"kernel": p["in_proj_kernel"], "bias": p["in_proj_bias"]}, x)
+    # a product in x's dtype, then the bias (vit.py:103-105 there): under a
+    # bf16 cast two roundings, not linear's one
+    qkv = torch.matmul(x, p["in_proj_kernel"]) + p["in_proj_bias"]
     q, k, v = (qkv[..., i * W:(i + 1) * W].reshape(B, S, heads, D).transpose(1, 2)
                for i in range(3))
     o = attention(q, k, v).transpose(1, 2).reshape(B, S, W)

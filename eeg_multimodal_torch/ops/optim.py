@@ -1,4 +1,6 @@
-"""Adam with f32 or bf16 moment storage, equal to the JAX trainer's optimizers.
+"""Adam with f32 or bf16 moment storage, equal to the JAX trainer's
+optimizers; AdamW with a warmup-cosine schedule, equal to the pretext
+trainers' ``optax.adamw``.
 
 Port of the JAX package's ``ops/optim.py`` (``optim.adam``, which is
 ``optax.adam`` at f32 storage; train/trainer.py:157-161 there):
@@ -28,13 +30,25 @@ drawn across the flat buffer of all members: the JAX sweep's one optimizer
 folds (seed, count) alike for every member under ``vmap``, so every member
 rounds with the bits of a single run at that seed, and so it does here (one
 member's draw, laid out over each leaf's M slices).
+
+``AdamW`` is ``optax.adamw(schedule, weight_decay, mask)``: ``scale_by_adam``,
+then ``add_decayed_weights`` on the masked leaves, then the scheduled rate,
+
+    p -= lr_t * (mu_hat / (sqrt(nu_hat) + eps) + wd * p),
+
+lr_t the schedule at the step count before the update, so the first update of
+a schedule that starts at 0 moves nothing. At ``weight_decay=0`` it is
+``optax.adam(schedule)`` (the distiller's). Its moments are f32 and its bias
+corrections f32, as optax computes them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..utils.seeding import derive_seed, generator
@@ -73,6 +87,23 @@ class AdamState:
     # the flat buffer of a moment stored below f32 ("mu", "nu"); the list's
     # tensors are views of it
     packed: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def to_tree(self):
+        """The state as a tree for ``train/checkpoint.py::save_pytree``: the
+        count, an f32 moment's tensors, a packed moment's flat buffer alone
+        (its list holds views of that buffer)."""
+        return {"count": self.count, "packed": dict(self.packed),
+                **{name: getattr(self, name) for name in ("mu", "nu") if name not in self.packed}}
+
+    @staticmethod
+    def from_tree(tree, params: List[torch.Tensor]) -> "AdamState":
+        """The inverse of :meth:`to_tree` for the leaves ``params``: a packed
+        moment's list rebuilt as views of its loaded buffer, so that updates
+        of the buffer reach the list as they do in a live state."""
+        packed = dict(tree["packed"])
+        moments = {name: _views(packed[name], params) if name in packed else list(tree[name])
+                   for name in ("mu", "nu")}
+        return AdamState(int(tree["count"]), moments["mu"], moments["nu"], packed)
 
 
 def _views(flat, like):
@@ -162,3 +193,75 @@ class Adam:
         # leaf after leaf, its chunk once per member: the stacked buffer's order
         rnd = torch.cat([c for c in rnd.split(sizes) for _ in range(M)])
         return stochastic_round_bits(flat, rnd)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int,
+                                 end_value: float = 0.0) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule``: from ``init_value`` linearly
+    to ``peak_value`` over ``warmup_steps``, then a cosine to ``end_value``
+    at ``decay_steps`` (the warmup included), constant after it. A function
+    of the step count (from 0) to a Python float: no device work."""
+    decay = decay_steps - warmup_steps
+    if decay <= 0:
+        raise ValueError(f"decay_steps={decay_steps} must exceed warmup_steps={warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return init_value + (peak_value - init_value) * count / warmup_steps
+        t = min(count - warmup_steps, decay)
+        return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
+
+    return schedule
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay^count in f32, as optax computes it."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+class AdamW:
+    """``optax.adamw(schedule, weight_decay=weight_decay, mask=decay_mask)``
+    over a list of leaves, updated in place (module docstring).
+    ``decay_mask(leaf)`` says which leaves decay (optax's mask function over
+    the tree's leaves; by default all)."""
+
+    def __init__(self, schedule: Callable[[int], float], weight_decay: float = 0.0,
+                 decay_mask: Optional[Callable[[torch.Tensor], bool]] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.decay_mask = decay_mask
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: List[torch.Tensor]) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamState) -> AdamState:
+        """One step on ``params`` in place at the rate ``schedule(count)``;
+        returns the new state."""
+        b1, b2 = self.b1, self.b2
+        lr = self.schedule(state.count)
+        count = state.count + 1
+        mu, nu = state.mu, state.nu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        upd = torch._foreach_div(mu, _bias_correction(b1, count))
+        denom = torch._foreach_div(nu, _bias_correction(b2, count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            mask = self.decay_mask or (lambda p: True)
+            decayed = [i for i, p in enumerate(params) if mask(p)]
+            if decayed:
+                torch._foreach_add_([upd[i] for i in decayed], [params[i] for i in decayed],
+                                    alpha=self.weight_decay)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        return AdamState(count, mu, nu)

@@ -22,6 +22,12 @@ class has it,
 so a checkpoint written by either package loads in the other, and in
 ``torch.load(weights_only=False)``. This module is the one place that knows
 the format.
+
+Beside it, ``save_pytree`` / ``load_pytree`` (checkpoint.py:39-53 there)
+store any tree of dicts, lists and tuples whose leaves are tensors, numpy
+arrays or Python scalars: the MLM-pretrained encoder (``bert_mlm.pickle``)
+and the resumable train state (``train/pipeline.py``). The port writes its
+own format, not the JAX package's (module docstring of ``save_pytree``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,66 @@ import torch
 
 from ..models.fusion import N_CROSS_LAYERS, FusionConfig
 from ..utils.device import resolve_device
+
+_PYTREE_FORMAT = "eeg_multimodal_torch pytree 1"
+_LEAF = "__tensor__"  # the key of an encoded tensor leaf
+
+
+def _encode(x):
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        t = torch.as_tensor(x).detach().cpu()
+        if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits, tagged
+            return {_LEAF: "bfloat16", "data": t.view(torch.int16).numpy().view(np.uint16)}
+        return {_LEAF: str(t.dtype)[6:], "data": t.numpy()}
+    if isinstance(x, dict):
+        return {k: _encode(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_encode(v) for v in x)
+    return x
+
+
+def _decode(x, device):
+    if isinstance(x, dict) and _LEAF in x:
+        data = torch.tensor(x["data"])
+        if x[_LEAF] == "bfloat16":
+            return data.view(torch.bfloat16).to(device)
+        return data.to(device)
+    if isinstance(x, dict):
+        return {k: _decode(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_decode(v, device) for v in x)
+    return x
+
+
+def save_pytree(path: str, tree) -> None:
+    """Pickle ``tree`` (dicts, lists, tuples; tensor, numpy and scalar
+    leaves) with numpy leaves: each tensor as its array and dtype, a bf16
+    one as its uint16 bits (numpy has no bf16; nothing is widened).
+
+    Not the JAX package's format: that pickles a jaxlib ``treedef`` beside
+    the leaves, which only an interpreter with JAX can unpickle, and the
+    port imports no JAX. So neither package reads the other's file;
+    :func:`load_pytree` refuses a JAX-written one with a ``ValueError``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"format": _PYTREE_FORMAT, "tree": _encode(tree)}, f)
+
+
+def load_pytree(path: str, device=None):
+    """The tree :func:`save_pytree` wrote, every array leaf a tensor of its
+    saved dtype on ``device`` (the card unless "cpu"); scalars as saved."""
+    dev = resolve_device(device)
+    with open(path, "rb") as f:
+        try:
+            d = pickle.load(f)
+        except ModuleNotFoundError as e:
+            raise ValueError(f"{path} is not a file of save_pytree: unpickling it needs "
+                             f"{e.name!r} (the JAX package pickles a jaxlib treedef)") from e
+    if not isinstance(d, dict) or d.get("format") != _PYTREE_FORMAT:
+        raise ValueError(f"{path} is not a file of save_pytree (the JAX package's "
+                         "save_pytree writes another format)")
+    return _decode(d["tree"], dev)
+
 
 # (tree path under a BERT layer, state-dict name under encoder.layer.N.)
 _BERT_LAYER = (

@@ -580,11 +580,17 @@ class Trainer:
     def fit(self, train_data: MultiModalArrays, test_data: MultiModalArrays,
             epsilon: float, log_path: Optional[str] = None,
             model_path: Optional[str] = None, echo: bool = True,
-            epoch_end_hook=None) -> Dict[str, Any]:
-        """Train ``epochs`` epochs (base_train.py:175-255): each epoch's
-        legacy record to ``log_path``, and the best-F1 params to
-        ``model_path`` in the reference's state-dict format. Returns
-        ``{"history", "best", "f1_best"}``.
+            start_epoch: int = 0, epoch_end_hook=None) -> Dict[str, Any]:
+        """Train epochs ``start_epoch`` .. ``epochs - 1`` (base_train.py:175-255):
+        each epoch's legacy record to ``log_path``, and the best-F1 params to
+        ``model_path`` in the reference's state-dict format; then
+        ``epoch_end_hook(epoch)``. Returns ``{"history", "best", "f1_best"}``.
+
+        Each epoch draws from generators seeded by (seed, epoch), so a run
+        resumed at ``start_epoch`` with the params and optimizer states the
+        unbroken run had there continues it exactly. As in the JAX package
+        (trainer.py:655-721 there), the best F1 starts again at
+        ``f1_best_init``: a resumed run does not know the earlier best.
 
         With ``defer_best_checkpoint`` an improvement takes a device-side
         copy of the params; the copy goes to disk every
@@ -630,7 +636,7 @@ class Trainer:
             prev_term = None
 
         try:
-            for epoch in range(cfg.epochs):
+            for epoch in range(start_epoch, cfg.epochs):
                 row = self.run_epoch(epoch, train_dev, test_dev, n_train, n_test, epsilon)
                 history.append(row)
                 rec = None

@@ -3,9 +3,11 @@ package, no Triton (its kernels are CUDA C++ built by nvcc), and no quiet
 fallback to the CPU when the card is missing."""
 import ast
 import os
+import pickle
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,7 +55,12 @@ def test_importing_every_port_module_loads_no_jax():
             "eeg_multimodal_torch.data.embedding", "eeg_multimodal_torch.data.tokenizer",
             "eeg_multimodal_torch.data.process", "eeg_multimodal_torch.data.image_transform",
             "eeg_multimodal_torch.models.vit", "eeg_multimodal_torch.models.resnet",
-            "eeg_multimodal_torch.native"} <= set(mods)
+            "eeg_multimodal_torch.native", "eeg_multimodal_torch.cli",
+            "eeg_multimodal_torch.train.mlm", "eeg_multimodal_torch.train.pretext",
+            "eeg_multimodal_torch.train.contrastive", "eeg_multimodal_torch.train.distill",
+            "eeg_multimodal_torch.train.pipeline", "eeg_multimodal_torch.train.checkpoint",
+            "eeg_multimodal_torch.train.trainer", "eeg_multimodal_torch.ops.optim",
+            "eeg_multimodal_torch.utils.profiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -63,6 +70,38 @@ def test_importing_every_port_module_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_command_line_loads_no_jax(tmp_path):
+    """``python -m eeg_multimodal_torch.cli``: its backends are imported
+    inside ``main``, past the import check above, so run two subcommands
+    (``process``, and ``distill`` on the CPU) and look at what they loaded."""
+    rng = np.random.RandomState(0)
+    raw = tmp_path / "task_1.txt"
+    np.savetxt(raw, np.concatenate([np.arange(30)[:, None], rng.randint(-9, 9, (30, 55)),
+                                    rng.randint(0, 2, (30, 1))], axis=1), fmt="%.1f")
+    root = tmp_path / "root"
+    real = tmp_path / "real.pickle"
+    real.write_bytes(pickle.dumps(rng.randn(6, 4).astype(np.float32)))
+    runs = [["process", str(raw), "--out", str(root / "data" / "processed")],
+            ["distill", "--data_root", str(root), "--out", str(tmp_path / "out"), "--steps",
+             "101", "--real_test_pickle", str(real), "--device", "cpu"]]
+    code = (
+        "import runpy, sys\n"
+        f"for argv in {runs!r}:\n"
+        "    sys.argv = ['cli'] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('eeg_multimodal_torch.cli', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "out" / "data" / "embedding" / "act" / "img" / "clip_ViT_B_32"
+            / "train.pickle").exists()
 
 
 def test_entry_points_refuse_to_run_without_a_card():
@@ -104,6 +143,28 @@ def test_embedding_entry_points_refuse_to_run_without_a_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert A._lib.cache_info().currsize == 0
+
+
+def test_pretext_entry_points_refuse_to_run_without_a_card(tmp_path):
+    """The pretext trainers, the distiller, the pipeline and ``load_pytree``
+    take the card by default, as the trainers do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device resolves to it")
+    from eeg_multimodal_torch.models.bert import BertConfig
+    from eeg_multimodal_torch.models.vit import ViTConfig
+    from eeg_multimodal_torch.train import checkpoint, contrastive, distill, mlm, pipeline
+
+    path = str(tmp_path / "t.pickle")
+    checkpoint.save_pytree(path, {"a": torch.ones(1)})
+    tiny = BertConfig(vocab_size=8, hidden_size=64, num_layers=1, num_heads=1,
+                      intermediate_size=8)
+    for call in (lambda: mlm.MLMPretrainer(tiny),
+                 lambda: contrastive.ContrastivePretrainer(ViTConfig(width=64, layers=1, heads=1)),
+                 lambda: distill.CLIPDistiller(), lambda: checkpoint.load_pytree(path),
+                 lambda: pipeline.pretrain_finetune(None, None, str(tmp_path), load_stat=path),
+                 lambda: mlm.pretrain_finetune_mlm(str(tmp_path), str(tmp_path / "o"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_the_port_reads_no_file_of_the_jax_package():
