@@ -16,7 +16,10 @@ too), the DP kernels with a member axis (equal to M single calls and their
 plain versions, bit for bit), the attention forward at the ViT's shapes
 (S = 50 at 16, 2 and 9 rows, S = 197; zero bias, p = 0), both attention
 kernels at path 9's bf16 shapes ((128, 12, 128, 64), p = 0.1, keys padded
-past 65; (128, 12, 50, 64), p = 0, forward and backward; tails of 2); and a 2-layer
+past 65; (128, 12, 50, 64), p = 0, forward and backward; tails of 2); the
+kernels' global offsets (each block of a (2, 2) layout of (8, 12, S, 64)
+against the global call: the mask bit for bit, the outputs within the
+tolerances; the DP block's rows 4-7 with r0 = 4 bit for bit); and a 2-layer
 BERT at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
@@ -62,7 +65,7 @@ stochastic rounding on the card. Then drives the main paths at full width
    epochs held to path 1's launches (the DP kernels with a member axis,
    attention with a seed per member), one more epoch under sync debug mode
    "error", a member step against single-member steps from the same
-   weights, the step profiled in turns against five single-member steps,
+   weights, the step profiled beside five single-member steps,
    the bench configuration as a 5-member sweep; then the legacy drivers:
    ``EpsExperiment.run_all_vmapped`` (20 members in two chunks of 10),
    ``extract_feawei``, ``dp_inits.feawei`` and ``run_index``,
@@ -87,6 +90,18 @@ stochastic rounding on the card. Then drives the main paths at full width
    ``ResumableTrainer`` resumed against an unbroken run (f32, bit for bit);
    ``pretrain_finetune``; a MLM and a contrastive step profiled and run
    under sync debug mode "error";
+7. (again) the sweep's fast modes: the 5-member sweep with share + reuse
+   (f32, fused DP) and with the paired encode (bf16), each held to one
+   model's fit with that mode (its launches) and its member step profiled
+   beside the faithful one;
+10. the (data, model) mesh (``parallel/``): the flagship meshless, then on
+   a (1, 2) and a (2, 1) mesh of two ranks spawned on the one card over
+   gloo (parity, not speed: gloo stages CUDA tensors through the host)
+   and a (1, 1) mesh over NCCL with a step under sync debug mode "error";
+   losses within rtol 2e-4, F1 equal, the gathered params within the
+   stated bounds, every rank path 1's launches; ``shard_dpsgd_trainer`` at
+   (1, 2), a 3-member ``SweepRunner(mesh=(2, 1))`` against the meshless
+   sweep, the flagship tree through ``save_pytree_dcp`` and back;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -520,6 +535,91 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     print("  max errors over the shapes: " + ", ".join(
         f"{name} {dt} {e:.3g}" for (name, dt), e in sorted(worst.items()))
         + " (CUDA-core design: f32 2.98e-7 / 4.77e-7, bf16 1.95e-3 / 7.81e-3)")
+    return err
+
+
+OFFSET_SHAPES = ((8, 12, 80, 64, "float32"), (8, 12, 80, 64, "bfloat16"),
+                 (8, 12, 128, 64, "float32"))
+# the blocks of a (2, 2) layout: (b0, h0) of 4 rows and 6 heads
+OFFSET_BLOCKS = ((0, 0), (0, 6), (4, 0), (4, 6))
+
+
+def check_offset_kernels(torch, A, K, gen, dev):
+    """The kernels' global offsets (a rank's block of a (data, model)
+    layout): at path 1's (8, 12, 80, 64) in f32 and bf16 and at (8, 12, 128,
+    64) f32, each (b0, h0) block of 4 rows and 6 heads of a (2, 2) layout,
+    its mask (``attn_dropout_mask`` with the block, and ``keep_mask_plain``
+    with it) equal to the slice of the global mask, bit for bit, and its
+    forward and backward outputs the slices of the global call's, within
+    the existing tolerances; the DP block at (8, 2304) with r0 = 4 equal to
+    rows 4-7 of the global call, forward and df bit for bit, and dDP the
+    plain version's of those rows. Returns the max errors by kernel."""
+    err = {"attn_fwd_block": 0.0, "attn_bwd_block": 0.0, "dp_fwd_r0": 0.0, "dp_bwd_r0": 0.0}
+    bits = []
+    for B, H, S, D, dt in OFFSET_SHAPES:
+        dtype = getattr(torch, dt)
+        f32 = dtype == torch.float32
+        fwd_tol = ATTN_TOL["f32_fwd" if f32 else "bf16"]
+        bwd_tol = ATTN_TOL["f32_bwd" if f32 else "bf16"]
+        qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        bias = torch.zeros(B, S, device=dev)
+        bias[:, VALID_TOKENS:] = NEG
+        dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(dtype)
+        seed = torch.tensor([31 + S], dtype=torch.int64, device=dev)
+        mask = A.attn_dropout_mask(seed, B, H, S, ATTN_DROP)
+        out, stats = A.attn_fwd(q, k, v, bias, seed, ATTN_DROP)
+        grads = A.attn_bwd(q, k, v, bias, seed, ATTN_DROP, out, stats, dout)
+        equal = True
+        for b0, h0 in OFFSET_BLOCKS:
+            blk = A.Block(b0, B, h0, H)
+            rows, heads = slice(b0, b0 + B // 2), slice(h0, h0 + H // 2)
+            part = A.attn_dropout_mask(seed, B // 2, H // 2, S, ATTN_DROP, blk)
+            check(torch.equal(part, mask[rows, heads]),
+                  f"the mask of block {(b0, h0)} at {(B, H, S, D)} is not the global slice")
+            check(torch.equal(part.bool(), A.keep_mask_plain(seed.tolist(), B // 2, H // 2, S,
+                                                             ATTN_DROP, dev, blk)),
+                  f"attn_dropout_mask differs from keep_mask_plain at block {(b0, h0)}")
+            qb, kb, vb = (t[rows, heads] for t in (q, k, v))
+            ob, sb = A.attn_fwd(qb, kb, vb, bias[rows], seed, ATTN_DROP, blk)
+            torch.testing.assert_close(ob.float(), out[rows, heads].float(), **fwd_tol)
+            gb = A.attn_bwd(qb, kb, vb, bias[rows], seed, ATTN_DROP, ob, sb,
+                            dout[rows, heads].contiguous(), blk)
+            e_b = 0.0
+            for name, g, want in zip("qkv", gb, grads):
+                torch.testing.assert_close(g.float(), want[rows, heads].float(), **bwd_tol,
+                                           msg=lambda m: f"d{name} of block {(b0, h0)}: {m}")
+                e_b = max(e_b, float((g.float() - want[rows, heads].float()).abs().max()))
+                equal &= torch.equal(g, want[rows, heads])
+            equal &= torch.equal(ob, out[rows, heads])
+            err["attn_fwd_block"] = max(err["attn_fwd_block"],
+                                        float((ob.float() - out[rows, heads].float()).abs().max()))
+            err["attn_bwd_block"] = max(err["attn_bwd_block"], e_b)
+        bits.append(f"{(B, H, S, D)} {dt}: {'bit for bit' if equal else 'within tolerance'}")
+    print("  attention blocks of a (2, 2) layout: masks equal the global slices bit for bit; "
+          "outputs " + "; ".join(bits))
+    B, F = 8, 2304
+    f = torch.randn(B, F, generator=gen, device=dev)
+    dp = torch.randn(1, F, generator=gen, device=dev)
+    g = torch.randn(B, F, generator=gen, device=dev)
+    s = torch.tensor([77], dtype=torch.int64, device=dev)
+    whole = K.dp_fwd(f, dp, EPS, s)
+    part = K.dp_fwd(f[4:].contiguous(), dp, EPS, s, 4)
+    check(torch.equal(part, whole[4:]), "the DP forward at r0 = 4 is not rows 4-7 of the call")
+    noise = K.laplace_plain(77, (4, F), dev, r0=4)
+    check(torch.equal(noise, K.laplace_plain(77, (B, F), dev)[4:]),
+          "laplace_plain at r0 = 4 is not rows 4-7")
+    plain = K.dp_block_plain(f[4:], dp, EPS, noise)
+    err["dp_fwd_r0"] = float((part - plain).abs().max())
+    df_w, _ = K.dp_bwd(f, dp, EPS, s, g)
+    df, ddp = K.dp_bwd(f[4:].contiguous(), dp, EPS, s, g[4:].contiguous(), r0=4)
+    check(torch.equal(df, df_w[4:]), "the DP backward's df at r0 = 4 is not rows 4-7")
+    df_p, ddp_p = K.dp_block_bwd_plain(f[4:], dp, EPS, noise, g[4:])
+    torch.testing.assert_close(ddp, ddp_p, rtol=2e-3, atol=1e-4)
+    err["dp_bwd_r0"] = max(float((ddp - ddp_p).abs().max()), float((df - df_p).abs().max()))
+    print(f"  DP block at (8, 2304), r0 = 4: forward and df equal rows 4-7 of the global call "
+          f"bit for bit; max|kernel - plain| forward {err['dp_fwd_r0']:.3g}, backward "
+          f"{err['dp_bwd_r0']:.3g}")
     return err
 
 
@@ -1356,8 +1456,8 @@ def run_sweep(torch, dev, rng, all_kernels, layers, steps):
     records; one more epoch under ``torch.cuda.set_sync_debug_mode("error")``
     (the (M, 5) row fetched after it); one member step against five
     single-member steps from the same weights, the noise handed in and
-    dropout off (``MEMBER_TOL``); the member step profiled in turns against
-    five single-member steps, with the peak memory each adds; then the
+    dropout off (``MEMBER_TOL``); the member step profiled beside five
+    single-member steps, with the peak memory each adds; then the
     bench configuration as a 5-member sweep for one epoch. Returns the
     launches of the f32 sweep."""
     from eeg_multimodal_torch.data import datasets as D
@@ -1471,7 +1571,7 @@ def run_sweep(torch, dev, rng, all_kernels, layers, steps):
           f"{worst['loss']:.3g}, updated params {worst['params']:.3g} (tolerance {MEMBER_TOL})")
     del p_m, ms, states
 
-    phase(f"profile: the {M}-member step against {M} single-member steps, in turns "
+    phase(f"profile: the {M}-member step beside {M} single-member steps "
           "(fused DP, f32, S = 80)")
     gens = tuple(torch.Generator(device=dev).manual_seed(40 + m) for m in range(M))
     member_states = [dp_os, model_os]
@@ -1489,8 +1589,8 @@ def run_sweep(torch, dev, rng, all_kernels, layers, steps):
         for (p1, *st), g, mem in zip(singles, gens, members):
             st[:] = single_steps.train_step(p1, *st, batch, w, mem.epsilon, g)[:2]
 
-    for label, fn in (("members", member_step), ("singles", single_member_steps),
-                      ("singles", single_member_steps), ("members", member_step)):
+    # once each, not in turns: the smoke's time limit
+    for label, fn in (("members", member_step), ("singles", single_member_steps)):
         profile_step(torch, fn, f"{M} members as one step" if label == "members"
                      else f"{M} single-member steps")
         torch.cuda.synchronize()
@@ -1526,6 +1626,188 @@ def run_sweep(torch, dev, rng, all_kernels, layers, steps):
           "bf16 sweep: non-finite row")
     torch.cuda.empty_cache()
     return launches
+
+
+# Each fast-mode sweep member against its own Trainer.fit on the card, set
+# before the check's first run: the f32 losses and accuracies as path 7's
+# member step (MEMBER_TOL) and F1 within 1e-6; bf16's losses within 5e-3
+# relative (the batched and the single GEMMs round apart, once each, in
+# bf16), its accuracies and F1 printed (a prediction at a near-tie may flip).
+FAST_SWEEP_F1_ABS, FAST_SWEEP_BF16_RTOL = 1e-6, 5e-3
+
+
+def run_fast_sweeps(torch, dev, rng, all_kernels, layers, steps):
+    """Main path 7's fast modes: the 5-member sweep over
+    ``privacy_utility_frontier()`` with ``share_phase_dropout`` (features
+    encoded once, f32, fused DP) and with ``paired_phase_encode`` (bf16
+    compute), one epoch each, held to one single model's ``Trainer.fit``
+    with that mode (launches by dtype equal: one set a step, whatever M),
+    and each member's row to its own ``Trainer.fit`` (the bounds above);
+    the member step of each mode profiled beside the faithful member step
+    (one profile each: the smoke's time limit)."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train.sweep import MemberSteps, SweepRunner, privacy_utility_frontier
+    from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+
+    members = privacy_utility_frontier()
+    M = len(members)
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    fused = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
+    cases = (("share_phase_dropout + reuse, f32", TrainConfig(epochs=1, share_phase_dropout=True)),
+             ("paired_phase_encode, bf16", TrainConfig(epochs=1, compute_dtype="bfloat16",
+                                                       paired_phase_encode=True)))
+    train_dev = train.to_device(dev)
+    batch = D.gather_batch(train_dev, torch.arange(8, device=dev))
+    w = torch.ones(8, device=dev)
+    for label, tc in cases:
+        phase(f"main path 7: a {M}-member sweep with {label}, fused DP, S = 80, one epoch, "
+              "against one model's fit with that mode")
+        for k in all_kernels:
+            k.reset()
+        single = Trainer(fused, tc).fit(train, test, EPS, echo=False)
+        want = {k.name: dict(k.by_dtype) for k in all_kernels}
+        for k in all_kernels:
+            k.reset()
+        t0 = time.perf_counter()
+        runner = SweepRunner(fused, tc, members)
+        res = runner.run(train, test, echo=False)
+        wall = time.perf_counter() - t0
+        check_launches({k.name: dict(k.by_dtype) for k in all_kernels}, want,
+                       f"{M}-member sweep, {label}")
+        check(all(math.isfinite(r["history"][0][key]) for r in res for key in ROW),
+              f"{label}: non-finite row")
+        check(len({r["history"][0]["train_loss"] for r in res}) == M,
+              f"{label}: the members trained alike")
+        print(f"  {wall:.2f} s (init included)")
+        f32 = tc.compute_dtype == "float32"
+        worst = 0.0
+        for m, r in zip(members, res):  # one seed: each member is a Trainer at its epsilon
+            alone = single if m.epsilon == EPS else Trainer(fused, tc).fit(
+                train, test, m.epsilon, echo=False)
+            a, b = r["history"][0], alone["history"][0]
+            for key in ("train_loss", "test_loss") + (("train_acc", "test_acc") if f32 else ()):
+                rtol, atol = ((MEMBER_TOL["rtol"], MEMBER_TOL["atol"]) if f32
+                              else (FAST_SWEEP_BF16_RTOL, 0.0))
+                check(abs(a[key] - b[key]) <= atol + rtol * abs(b[key]),
+                      f"{label}, epsilon {m.epsilon}: {key} {a[key]} against its fit's {b[key]}")
+                if key.endswith("loss"):
+                    worst = max(worst, abs(a[key] - b[key]) / abs(b[key]))
+            if f32:
+                check(abs(a["f1"] - b["f1"]) <= FAST_SWEEP_F1_ABS,
+                      f"{label}, epsilon {m.epsilon}: F1 {a['f1']} against {b['f1']}")
+            print(f"  epsilon {m.epsilon:>5}: member train loss {a['train_loss']:.6f} / fit "
+                  f"{b['train_loss']:.6f}, test loss {a['test_loss']:.6f} / "
+                  f"{b['test_loss']:.6f}, accuracy {a['test_acc']:.4f} / {b['test_acc']:.4f}, "
+                  f"F1 {a['f1']:.4f} / {b['f1']:.4f}")
+        print(f"  each member against its own Trainer.fit: max relative loss error {worst:.3g}")
+        phase(f"profile: the {M}-member step with {label}, then the faithful member step")
+        fast_steps, params, dp_os, model_os = runner.init_members(members)
+        faith_steps = MemberSteps(fused, dataclasses.replace(
+            tc, share_phase_dropout=False, paired_phase_encode=False), M, dev)
+        eps_t = torch.tensor([m.epsilon for m in members], dtype=torch.float64, device=dev)
+        gens = tuple(torch.Generator(device=dev).manual_seed(60 + m) for m in range(M))
+        states = [dp_os, model_os]
+
+        def step_with(steps_m):
+            def step():
+                states[:] = steps_m.train_step(params, *states, batch, w, eps_t, gens)[:2]
+            return step
+
+        for name, st in (("fast", fast_steps), ("faithful", faith_steps)):
+            profile_step(torch, step_with(st),
+                         f"{M} members, {label if name == 'fast' else 'the faithful step'}")
+        del params, states, fast_steps, faith_steps, runner
+        torch.cuda.empty_cache()
+
+
+def time_offset_calls(torch, A, K, gen, dev, err, block_launches):
+    """The offset calls of path 10's ranks, timed: the attention kernels on
+    a (4, 6, 80, 64) f32 block (b0 = 4, h0 = 6 of (8, 12)), p = 0.1, and the
+    DP kernels on rows 4-7 of (8, 2304); each beside the call of its own at
+    the same shape (their times should agree within noise), its plain
+    version and, for attention, SDPA. Returns the kernels line's rows."""
+    import torch.nn.functional as TF
+
+    rows = []
+    B, H, S, D = 4, 6, 80, 64
+    qkv = torch.randn(2 * B, S, 3, 2 * H, D, generator=gen, device=dev)
+    q, k, v = (qkv[4:, :, i, 6:].transpose(1, 2) for i in range(3))
+    bias = torch.zeros(B, S, device=dev)
+    bias[:, VALID_TOKENS:] = NEG
+    dout = torch.randn(B, H, S, D, generator=gen, device=dev)
+    s = torch.tensor([13], dtype=torch.int64, device=dev)
+    blk = A.Block(4, 2 * B, 6, 2 * H)
+    out, stats = A.attn_fwd(q, k, v, bias, s, ATTN_DROP, blk)
+    keep = A.attn_dropout_mask(s, B, H, S, ATTN_DROP, blk).bool()
+    calls = {
+        "attn_fwd": (lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP, blk),
+                     lambda: A.attn_fwd(q, k, v, bias, s, ATTN_DROP),
+                     lambda: A.attention_plain(q, k, v, bias, keep, ATTN_DROP),
+                     lambda: TF.scaled_dot_product_attention(q, k, v,
+                                                             attn_mask=bias[:, None, None, :],
+                                                             dropout_p=ATTN_DROP)),
+        "attn_bwd": (lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats, dout, blk),
+                     lambda: A.attn_bwd(q, k, v, bias, s, ATTN_DROP, out, stats, dout),
+                     lambda: A.attention_bwd_plain(q, k, v, bias, keep, ATTN_DROP, dout), None),
+    }
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(TF.scaled_dot_product_attention(
+            *leaves, attn_mask=bias[:, None, None, :], dropout_p=ATTN_DROP), leaves, dout)
+
+    def in_turns(kern, own, iters=200):
+        """Each call timed twice, in turns (offset, own, own, offset): the
+        means, and the four readings."""
+        t = [time_ms(torch, fn, iters, 5) for fn in (kern, own, own, kern)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+    for name, (kern, own, plain, lib) in calls.items():
+        offset, own_ms, turns = in_turns(kern, own, 100)
+        t = {"offset": offset, "own": own_ms, "plain": time_ms(torch, plain, 50, 5)}
+        if lib is not None:
+            t["sdpa"] = time_ms(torch, lib, 100, 5)
+        else:
+            t["sdpa"] = time_ms(torch, sdpa_fwd_bwd, 100, 5) - time_ms(torch, calls["attn_fwd"][3],
+                                                                      100, 5)
+        bms, by = attn_bound_ms(name, B, H, S, D, 4)
+        print(f"  {name} block {(B, H, S, D)} f32 (b0 = 4, h0 = 6): offset call "
+              f"{t['offset'] * 1e3:.2f} us, the call of its own {t['own'] * 1e3:.2f} us (in "
+              f"turns: {', '.join(f'{x * 1e3:.2f}' for x in turns)}), plain "
+              f"{t['plain'] * 1e3:.2f} us, SDPA {t['sdpa'] * 1e3:.2f} us; bound {bms * 1e3:.3f} "
+              f"us ({by})")
+        rows.append({"name": f"{name}_block", "route": ROUTES[name], "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": block_launches[f"{name}_block"],
+                     "max_abs_err": err[f"{name}_block"], "ms": t["offset"],
+                     "plain_ms": t["plain"], "bound_ms": bms, "bound_by": by,
+                     "library_ms": t["sdpa"]})
+    F = 2304
+    f = torch.randn(2 * B, F, generator=gen, device=dev)[4:]
+    dp = torch.randn(1, F, generator=gen, device=dev)
+    g = torch.randn(B, F, generator=gen, device=dev)
+    s = torch.tensor([5], dtype=torch.int64, device=dev)
+    calls = {
+        "dp_fwd": (lambda: K.dp_fwd(f, dp, EPS, s, 4), lambda: K.dp_fwd(f, dp, EPS, s),
+                   lambda: K.dp_block_plain(f, dp, EPS, K.laplace_plain(5, (B, F), dev, r0=4))),
+        "dp_bwd": (lambda: K.dp_bwd(f, dp, EPS, s, g, r0=4), lambda: K.dp_bwd(f, dp, EPS, s, g),
+                   lambda: K.dp_block_bwd_plain(f, dp, EPS, K.laplace_plain(5, (B, F), dev, r0=4),
+                                                g)),
+    }
+    for name, (kern, own, plain) in calls.items():
+        offset, own_ms, turns = in_turns(kern, own)
+        t = {"offset": offset, "own": own_ms, "plain": time_ms(torch, plain, 20, 5)}
+        bms, by = dp_bound_ms(name, B, F)
+        print(f"  {name} rows 4-7 of (8, {F}) (r0 = 4): offset call {t['offset'] * 1e3:.2f} us, "
+              f"the call of its own {t['own'] * 1e3:.2f} us (in turns: "
+              f"{', '.join(f'{x * 1e3:.2f}' for x in turns)}), plain {t['plain'] * 1e3:.2f} us; "
+              f"bound {bms * 1e3:.4f} us ({by})")
+        rows.append({"name": f"{name}_r0", "route": ROUTES[name], "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": block_launches[f"{name}_r0"],
+                     "max_abs_err": err[f"{name}_r0"], "ms": t["offset"],
+                     "plain_ms": t["plain"], "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
+    return rows
 
 
 def run_legacy(torch, dev, rng, all_kernels, layers, steps):
@@ -2287,6 +2569,348 @@ def time_pretext_attention(torch, A, gen, dev, pretext, err, vit_train_err):
 
 # cuBLAS's kernel names: nvjet_* are its Hopper tensor-core (wgmma) GEMMs;
 # *_simt_sgemm_*, *_f32f32_*_ffma_*, gemv and gemmSN its CUDA-core ones
+# Main path 10's parity bounds, set before its first run on the card: the
+# losses and F1 as the JAX package's mesh tests (tests/test_parallel.py:91-92,
+# 126-127); the gathered params: each leaf's update within 1e-2 of the
+# meshless update in L2 (the GEMMs of a shard may take other cuBLAS
+# algorithms), every element within 4 x lr x steps (Adam's scale).
+MESH_LOSS_RTOL, MESH_F1_ABS, MESH_UPDATE_RTOL = 2e-4, 1e-6, 1e-2
+MESH_RUNS = (("gloo", (1, 2)), ("gloo", (2, 1)), ("nccl", (1, 1)))
+MESH_SPAWN_S = 420  # a spawned run's limit
+
+
+def mesh_rank(rank, world, backend, store_path, job, kw, out):
+    """One rank of a spawned mesh run on the card (``torch.multiprocessing``,
+    one process a rank, all on card 0): joins the group through a
+    ``FileStore``, runs ``MESH_JOBS[job]`` and pickles its result to
+    ``<out>.<rank>``. The kernels come from the library the parent built."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world)
+    try:
+        result = MESH_JOBS[job](torch, rank, **kw)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh(torch, root, backend, world, job, **kw):
+    """Run ``job`` on ``world`` ranks over ``backend``; every rank's result."""
+    import torch.multiprocessing as mp
+
+    # a new store file for every group: one left by an earlier group would be read as its own
+    store = os.path.join(root, f"store_{job}_{backend}_{time.time_ns()}")
+    out = os.path.join(root, job)
+    ctx = mp.start_processes(mesh_rank, args=(world, backend, store, job, kw, out),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.time() + MESH_SPAWN_S
+    while not ctx.join(timeout=5):  # raises if a rank failed
+        if time.time() > deadline:  # a collective the ranks do not pair up hangs: stop them
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"the {job} ranks over {backend} ran past {MESH_SPAWN_S} s")
+    results = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            results.append(pickle.load(f))
+        os.remove(f"{out}.{r}")
+    return results
+
+
+def mesh_step_times(torch, step, rank, label, n=5):
+    """Host ms per step over ``n`` steps and device busy ms per step from one
+    profiler session of ``n`` steps, the same calls on every rank (the
+    steps' collectives pair up). Returns (host ms, device ms or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+    busy = busy or None
+    print(f"  [{label} rank {rank}] train step {host:.2f} ms host, device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / host):.3f}"), flush=True)
+    return host, busy
+
+
+def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step):
+    """``shard_trainer`` + ``Trainer.fit`` of the flagship (fused DP, f32,
+    two epochs) on this rank; its launches, its history, the gathered params
+    (rank 0, as numpy) and a profiled step; with ``sync_step`` one more step
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.ops import attention as A
+    from eeg_multimodal_torch.ops import dp_fused as K
+    from eeg_multimodal_torch.parallel.mesh import make_mesh
+    from eeg_multimodal_torch.parallel.sharding import gather_params
+    from eeg_multimodal_torch.parallel.train import shard_trainer
+    from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+    from eeg_multimodal_torch.utils.trees import tree_items
+
+    with open(data_path, "rb") as f:
+        train, test = pickle.load(f)
+    dev = torch.device("cuda", 0)
+    fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
+    tr = Trainer(fc, TrainConfig(epochs=2, f1_best_init=-1.0), device=dev)
+    label = f"mesh {mesh_shape}"
+    mesh = shard_trainer(tr, make_mesh(*mesh_shape))
+    kernels = K.KERNELS + A.KERNELS
+    for k in kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    out = tr.fit(train, test, EPS, log_path=os.path.join(out_dir, "log") + "/",
+                 model_path=os.path.join(out_dir, "best.pickle"), echo=False)
+    wall = time.perf_counter() - t0
+    launches = {k.name: dict(k.by_dtype) for k in kernels}
+    whole = gather_params(mesh, tr.params)
+    params = {p: t.cpu().numpy() for p, t in tree_items(whole)} if rank == 0 else None
+    del whole
+    train_dev = train.to_device(dev)
+    batch = D.gather_batch(train_dev, torch.arange(8, device=dev))
+    w = torch.ones(8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    states = [tr.dp_os, tr.model_os]
+
+    def step():
+        states[:] = tr.steps.train_step(tr.params, *states, batch, w, EPS, gen)[:2]
+
+    host, busy = mesh_step_times(torch, step, rank, label)
+    if sync_step:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    shard = tuple(tr.params["bert"]["layers"][0]["attn"]["query"]["kernel"].shape)
+    return {"history": out["history"], "launches": launches, "params": params, "wall": wall,
+            "host_ms": host, "device_ms": busy, "shard": shard,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def mesh_dpsgd_job(torch, rank, mesh_shape, data_path):
+    """``shard_dpsgd_trainer`` + ``DPSGDTrainer.fit``, one epoch."""
+    from eeg_multimodal_torch.dp.dpsgd import DPSGDConfig
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.parallel.mesh import make_mesh
+    from eeg_multimodal_torch.parallel.train import shard_dpsgd_trainer
+    from eeg_multimodal_torch.train.dpsgd_trainer import DPSGDTrainer
+
+    with open(data_path, "rb") as f:
+        train, test = pickle.load(f)
+    tr = DPSGDTrainer(fusion.config_for("ti", "DPSGD"), DPSGDConfig(EPS, epochs=1),
+                      device=torch.device("cuda", 0))
+    shard_dpsgd_trainer(tr, make_mesh(*mesh_shape))
+    out = tr.fit(train, test, echo=False)
+    return {"history": out["history"], "sigma": out["sigma"]}
+
+
+def mesh_sweep_job(torch, rank, mesh_shape, data_path, epsilons):
+    """A ``SweepRunner(mesh=)`` over ``epsilons`` (fused DP, f32, one epoch)."""
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.ops import attention as A
+    from eeg_multimodal_torch.ops import dp_fused as K
+    from eeg_multimodal_torch.parallel.mesh import make_mesh
+    from eeg_multimodal_torch.train.sweep import SweepMember, SweepRunner
+    from eeg_multimodal_torch.train.trainer import TrainConfig
+
+    with open(data_path, "rb") as f:
+        train, test = pickle.load(f)
+    fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
+    runner = SweepRunner(fc, TrainConfig(epochs=1), [SweepMember(e) for e in epsilons],
+                         mesh=make_mesh(*mesh_shape), device=torch.device("cuda", 0))
+    for k in K.KERNELS + A.KERNELS:
+        k.reset()
+    res = runner.run(train, test, echo=False)
+    return {"results": res, "launches": {k.name: dict(k.by_dtype) for k in K.KERNELS + A.KERNELS}}
+
+
+MESH_JOBS = {"fit": mesh_fit_job, "dpsgd": mesh_dpsgd_job, "sweep": mesh_sweep_job}
+
+
+def run_mesh(torch, dev, rng, all_kernels, layers, steps):
+    """Main path 10, the (data, model) mesh at full width (the counterpart of
+    ``__graft_entry__.py``'s stage 2): the flagship TICA_LapDropout (BERT-base,
+    the 3-layer decoder, F = 2304, S = 80, batch 8, f32, fused DP) for two
+    epochs at 64 / 32 rows, meshless in this process, then on a (1, 2) and a
+    (2, 1) mesh of two ranks spawned on the one card over gloo (which stages
+    CUDA tensors through the host: parity, not speed) and a (1, 1) mesh over
+    NCCL with one step under sync debug mode "error". Each mesh run's losses
+    within ``MESH_LOSS_RTOL`` of the meshless run's, its F1 equal, its
+    gathered params within the bounds above, each rank's launches path 1's.
+    Then ``shard_dpsgd_trainer`` at (1, 2), one epoch, sigma equal; a
+    3-member ``SweepRunner(mesh=)`` at (2, 1) against the meshless sweep
+    (the pad member dropped); the flagship tree through ``save_pytree_dcp``
+    and back, bit for bit. Returns the launches of the offset blocks (rank 1
+    of the (1, 2) and the (2, 1) runs) and the mesh numbers."""
+    from eeg_multimodal_torch.data import datasets as D
+    from eeg_multimodal_torch.dp.dpsgd import DPSGDConfig
+    from eeg_multimodal_torch.models import fusion
+    from eeg_multimodal_torch.train.checkpoint import load_pytree_dcp, save_pytree_dcp
+    from eeg_multimodal_torch.train.dpsgd_trainer import DPSGDTrainer
+    from eeg_multimodal_torch.train.sweep import SweepMember, SweepRunner
+    from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+    from eeg_multimodal_torch.utils.trees import tree_items
+
+    phase("main path 10: the (data, model) mesh, TICA_LapDropout fused DP, f32, S = 80, two "
+          "epochs of 64 / 32 rows: meshless, then (1, 2) and (2, 1) over gloo and (1, 1) over "
+          "NCCL, two ranks on the one card")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    train, test = D.truncate_pair(synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL))
+    data_path = os.path.join(root, "rows.pickle")
+    with open(data_path, "wb") as f:
+        pickle.dump((train, test), f)
+    fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
+    tc = TrainConfig(epochs=2, f1_best_init=-1.0)
+    plain = Trainer(fc, tc)
+    init = {p: t.detach().clone() for p, t in tree_items(plain.params)}
+    for k in all_kernels:
+        k.reset()
+    t0 = time.perf_counter()
+    want = plain.fit(train, test, EPS, echo=False)
+    print(f"  meshless fit {time.perf_counter() - t0:.2f} s: " + "; ".join(
+        f"epoch {h['epoch']} train loss {h['train_loss']:.6f} test loss {h['test_loss']:.6f} "
+        f"f1 {h['f1']:.4f}" for h in want["history"]))
+    path1 = {"dp_fwd": {"float32": 2 * (2 * steps + 1)}, "dp_bwd": {"float32": 2 * 2 * steps},
+             "attn_fwd": {"float32": layers * (2 * steps + 1) * 2},
+             "attn_bwd": {"float32": layers * steps * 2}}
+    check_launches({k.name: dict(k.by_dtype) for k in all_kernels}, path1, "meshless fit")
+    lr = tc.learning_rate
+    summary, block_launches = {}, {}
+    for backend, shape in MESH_RUNS:
+        world = shape[0] * shape[1]
+        label = f"{shape} over {backend}"
+        run_root = os.path.join(root, f"{backend}_{shape[0]}x{shape[1]}")
+        os.makedirs(run_root)
+        t0 = time.perf_counter()
+        res = spawn_mesh(torch, root, backend, world, "fit", mesh_shape=shape,
+                         data_path=data_path, out_dir=run_root, sync_step=backend == "nccl")
+        wall = time.perf_counter() - t0
+        worst_loss = 0.0
+        for rank, r in enumerate(res):
+            for a, b in zip(r["history"], want["history"]):
+                for key in ("train_loss", "test_loss"):
+                    rel = abs(a[key] - b[key]) / abs(b[key])
+                    worst_loss = max(worst_loss, rel)
+                    check(rel <= MESH_LOSS_RTOL, f"{label} rank {rank}: {key} {a[key]} against "
+                          f"{b[key]} (rtol {rel:.3g})")
+                check(abs(a["f1"] - b["f1"]) <= MESH_F1_ABS,
+                      f"{label} rank {rank}: F1 {a['f1']} against {b['f1']}")
+            check_launches(r["launches"], path1, f"{label} rank {rank}")
+        steps_run = 2 * steps
+        worst_el = worst_upd = 0.0
+        got = res[0]["params"]
+        for path, t in tree_items(plain.params):
+            g = torch.from_numpy(got[path]).to(dev)
+            el = float((g - t).abs().max())
+            check(el <= 4 * lr * steps_run, f"{label}: {path} moved {el} from the meshless")
+            upd = t - init[path]
+            rel = float((g - init[path] - upd).norm() / upd.norm().clamp_min(1e-30))
+            if not path.endswith(("attn/key/bias", "in_proj_bias")):  # exact gradient 0 (key)
+                check(rel <= MESH_UPDATE_RTOL, f"{label}: {path} update off by {rel:.3g}")
+                worst_upd = max(worst_upd, rel)
+            worst_el = max(worst_el, el)
+        del got
+        check(sorted(os.listdir(os.path.join(run_root, "log"))) ==
+              ["best_record.txt", "metrics.jsonl", "whole_record.txt"], f"{label}: records")
+        check(len(open(os.path.join(run_root, "log", "metrics.jsonl")).read().splitlines()) == 2,
+              f"{label}: rank (0, 0) alone writes two epochs")
+        check(os.path.exists(os.path.join(run_root, "best.pickle")), f"{label}: no checkpoint")
+        print(f"  {label}: {wall:.1f} s for the spawn and fit; shard of a query kernel "
+              f"{res[0]['shard']}; max rel loss error {worst_loss:.3g}, F1 equal; gathered "
+              f"params: max |mesh - meshless| {worst_el:.3g}, max rel update error "
+              f"{worst_upd:.3g}; per rank: " + "; ".join(
+                  f"fit {r['wall']:.1f} s, step {r['host_ms']:.1f} ms host / "
+                  + ("device not measured" if r["device_ms"] is None else
+                     f"{r['device_ms']:.1f} ms device") + f", peak {r['peak_gib']:.2f} GiB"
+                  for r in res))
+        summary[label] = {"host_ms": [r["host_ms"] for r in res],
+                          "device_ms": [r["device_ms"] for r in res], "loss_rel": worst_loss,
+                          "param_abs": worst_el, "update_rel": worst_upd}
+        if shape == (1, 2):
+            block_launches.update({f"{k}_block": sum(v.values()) for k, v in
+                                   res[1]["launches"].items() if k.startswith("attn")})
+        if shape == (2, 1):
+            block_launches.update({f"{k}_r0": sum(v.values()) for k, v in
+                                   res[1]["launches"].items() if k.startswith("dp")})
+        del res
+    del plain, init
+
+    phase("main path 10: shard_dpsgd_trainer at (1, 2) over gloo, one epoch, against the "
+          "meshless DPSGDTrainer")
+    t0 = time.perf_counter()
+    dp_plain = DPSGDTrainer(fusion.config_for("ti", "DPSGD"), DPSGDConfig(EPS, epochs=1))
+    want_dp = dp_plain.fit(train, test, echo=False)
+    res = spawn_mesh(torch, root, "gloo", 2, "dpsgd", mesh_shape=(1, 2), data_path=data_path)
+    for rank, r in enumerate(res):
+        check(r["sigma"] == want_dp["sigma"], f"DP-SGD rank {rank}: sigma {r['sigma']}")
+        for a, b in zip(r["history"], want_dp["history"]):
+            for key in ("train_loss", "test_loss"):
+                check(abs(a[key] - b[key]) <= MESH_LOSS_RTOL * abs(b[key]),
+                      f"DP-SGD rank {rank}: {key} {a[key]} against {b[key]}")
+            check(abs(a["f1"] - b["f1"]) <= MESH_F1_ABS, f"DP-SGD rank {rank}: F1")
+    h = res[0]["history"][0]
+    print(f"  sigma {res[0]['sigma']!r} equal; train loss {h['train_loss']:.6f} against "
+          f"{want_dp['history'][0]['train_loss']:.6f}, test loss {h['test_loss']:.6f} against "
+          f"{want_dp['history'][0]['test_loss']:.6f} ({time.perf_counter() - t0:.1f} s)")
+    del dp_plain
+
+    eps3 = (0.1, 1.0, 5.0)
+    phase(f"main path 10: a {len(eps3)}-member SweepRunner(mesh=(2, 1)) over gloo against "
+          "the meshless sweep, one epoch (a __pad__ member tiles the data axis)")
+    fc1 = TrainConfig(epochs=1)
+    plain_s = SweepRunner(fc, fc1, [SweepMember(e) for e in eps3]).run(train, test, echo=False)
+    res = spawn_mesh(torch, root, "gloo", 2, "sweep", mesh_shape=(2, 1), data_path=data_path,
+                     epsilons=eps3)
+    one_epoch = {"dp_fwd": {"float32": 2 * steps + 1}, "dp_bwd": {"float32": 2 * steps},
+                 "attn_fwd": {"float32": layers * (2 * steps + 1)},
+                 "attn_bwd": {"float32": layers * steps}}
+    for rank, r in enumerate(res):
+        check([x["member"] for x in r["results"]] == [x["member"] for x in plain_s],
+              f"sweep rank {rank}: members {[x['member'] for x in r['results']]}")
+        for a, b in zip(r["results"], plain_s):
+            for ra, rb in zip(a["history"], b["history"]):
+                for key in ("train_loss", "test_loss"):
+                    check(abs(ra[key] - rb[key]) <= MESH_LOSS_RTOL * abs(rb[key]),
+                          f"sweep rank {rank} {a['member']}: {key}")
+                check(abs(ra["f1"] - rb["f1"]) <= MESH_F1_ABS, f"sweep rank {rank}: F1")
+        check_launches(r["launches"], one_epoch, f"sweep rank {rank} (two members)")
+    print("  every rank returns the three members' rows, equal to the meshless sweep's")
+
+    phase("main path 10: the flagship tree through save_pytree_dcp / load_pytree_dcp")
+    tree = fusion.init(fc, 3)
+    path = os.path.join(root, "dcp")
+    t0 = time.perf_counter()
+    save_pytree_dcp(path, tree)
+    save_s = time.perf_counter() - t0
+    back = load_pytree_dcp(path)
+    like = load_pytree_dcp(path, like=fusion.init(fc, 4))
+    for (p, a), (_, b), (_, c) in zip(tree_items(tree), tree_items(back), tree_items(like)):
+        check(torch.equal(a, b) and torch.equal(a, c), f"DCP round trip: {p} differs")
+    print(f"  {len(tree_items(tree))} leaves bit for bit, from the metadata and into a like "
+          f"tree; save {save_s:.1f} s")
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return block_launches, summary
+
+
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
 TENSOR_CORE = re.compile(r"nvjet|bf16|s16816|h16816|hmma|gmma|tf32", re.I)
 
@@ -2430,6 +3054,9 @@ def main():
                 torch, A, gen, dev, G).items()))
     print(f"  (checks {time.time() - t0:.1f} s)")
 
+    phase("the kernels' global offsets: blocks of a (2, 2) layout against the global call")
+    err.update(check_offset_kernels(torch, A, K, gen, dev))
+
     phase("reference check: 2-layer BERT at S = 512, card (attention kernels) against CPU")
     check_bert_card_against_cpu(torch, bert_mod, A, tree_map, dev)
 
@@ -2515,11 +3142,10 @@ def main():
         return train_step
 
     phase("profile: steady-state train step at S = 80, attention gate open and closed")
-    # closed: the unfused branch, as under the JAX package's gate (S >= 512);
-    # in turns (closed, open, open, closed), since the host's clock spreads
+    # closed: the unfused branch, as under the JAX package's gate (S >= 512)
     gate = A.attention_available
     step_80 = step_fn(trainer, train_dev)
-    for label in ("closed", "open", "open", "closed"):
+    for label in ("closed", "open"):  # once each: the smoke's time limit
         A.attention_available = gate if label == "open" else (lambda S, D: False)
         try:
             by_kernel = profile_step(torch, step_80, f"S = 80, gate {label}",
@@ -2915,9 +3541,11 @@ def main():
     run_dpsgd(torch, dev, rng, all_kernels, layers, steps)
     run_drivers(torch, dev, rng, all_kernels, layers, steps)
     launches_sweep = run_sweep(torch, dev, rng, all_kernels, layers, steps)
+    run_fast_sweeps(torch, dev, rng, all_kernels, layers, steps)
     run_legacy(torch, dev, rng, all_kernels, layers, steps)
     embed, tree = run_embedding(torch, dev, all_kernels, layers)
     pretext = run_pretext(torch, dev, all_kernels, layers, tree)
+    block_launches, _ = run_mesh(torch, dev, rng, all_kernels, layers, steps)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)
@@ -3060,8 +3688,13 @@ def main():
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
 
-    phase("timing: attention kernels, f32, p = 0.1 (the gate question at S = 80 and 128)")
+    phase("timing: the offset calls (a rank's block of a (2, 2) layout) beside the same "
+          "shapes' calls of their own")
     import torch.nn.functional as TF
+
+    kernels += time_offset_calls(torch, A, K, gen, dev, err, block_launches)
+
+    phase("timing: attention kernels, f32, p = 0.1 (the gate question at S = 80 and 128)")
 
     for S in (80, 128, 512):
         B, H, D = 8, 12, 64

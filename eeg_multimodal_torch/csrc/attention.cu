@@ -79,6 +79,13 @@
 //    so one call over G stacked batches of B / G rows draws exactly the
 //    masks of G calls over one batch each (the paired phase encode's two
 //    phases in one 2B forward). G = 1 is the plain single-seed call.
+//  - a call may hold one block of a larger one (a rank's shard under a
+//    (data, model) mesh): rows b0 .. b0 + B - 1 of B_all and heads
+//    h0 .. h0 + H - 1 of H_all. The mask then takes the global row and
+//    head: seed (b0 + b) / (B_all / G), counter
+//    ((((b0 + b) mod (B_all / G)) H_all + h0 + h) S + i0) S + j0. So each
+//    block draws exactly its slice of the global call's mask. Zero offsets
+//    with B_all = B and H_all = H are the call of its own.
 //  - q, k, v and dO come in as (B, H, S, D) views with (b, h, s) strides
 //    and data pointers that are multiples of 16 bytes and a unit last
 //    stride (the wrapper checks), so the packed QKV projection needs no
@@ -125,7 +132,8 @@ struct Params {
   void *out, *dq, *dk, *dv;            // (B, S, H, D)
   float* stats;                        // (2, B, H, S): row max m, row sum l
   float* delta;                        // (B, H, S)
-  int B, H, S, rows_per_seed;  // rows_per_seed = B / G
+  int B, H, S, rows_per_seed;  // rows_per_seed = B_all / G
+  int b0, h0, H_all;           // the block's first global row and head, the global heads
   float scale, keep_prob, inv_keep;  // inv_keep = 1 / keep_prob
   uint32_t threshold;
   int dropout;
@@ -352,10 +360,22 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld, int 
 // i0 = (i & ~15) | (i & 7) and j0 = j & ~1: the four elements one thread
 // holds in an m16n8 C fragment whose rows start at a multiple of 16. The
 // counter is ((b' H + h) S + i0) S + j0 (mask_base = (b' H + h) S, with
+// b, h and H the global row, head and head count (mask_base below) and
 // b' = b mod rows_per_seed, the row within its seed's group); element
 // (i, j) takes word 2 ((i >> 3) & 1) + (j & 1), its place c0..c3 in the
 // fragment. So the mask depends on (seed, b, h, i, j) alone, never on the
 // tiling. Bit e of the result is set when fragment element e is kept.
+// The seed and mask_base of launch row b, head h: global row b0 + b, head
+// h0 + h.
+__device__ __forceinline__ uint64_t mask_seed(const int64_t* seed, int b0, int b,
+                                              int rows_per_seed) {
+  return (uint64_t)seed[(b0 + b) / rows_per_seed];
+}
+__device__ __forceinline__ uint64_t mask_base_of(int b0, int b, int rows_per_seed, int H_all,
+                                                 int h0, int h, int S) {
+  return (uint64_t)(((b0 + b) % rows_per_seed) * H_all + h0 + h) * S;
+}
+
 __device__ __forceinline__ uint32_t keep_bits(uint64_t mask_base, int S, int i0, int j0,
                                               uint64_t seed, uint32_t threshold) {
   const uint4 w = philox4x32_10((mask_base + (uint64_t)i0) * (uint64_t)S + (uint64_t)j0, seed);
@@ -394,9 +414,9 @@ __global__ void __launch_bounds__(NW * 32, smem_blocks(FwdTiles<float, D, NW, BK
   const T* k = (const T*)p.k + b * p.ks[0] + h * p.ks[1];
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const float* bias = p.bias + (int64_t)b * S;
-  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t seed = mask_seed(p.seed, p.b0, b, p.rows_per_seed);
   const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
-  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
+  const uint64_t mask_base = mask_base_of(p.b0, b, p.rows_per_seed, p.H_all, p.h0, h, S);
   const int n_tiles = (S + BK - 1) / BK;
 
   load_tile<T, BQ, D, LQ, NT>(sQ, q, p.qs[2], q0, S);
@@ -581,9 +601,9 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DkdvTiles<float, D>::smem)
   const T* k = (const T*)p.k + b * p.ks[0] + h * p.ks[1];
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const T* dout = (const T*)p.dout + b * p.ds[0] + h * p.ds[1];
-  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t seed = mask_seed(p.seed, p.b0, b, p.rows_per_seed);
   const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
-  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
+  const uint64_t mask_base = mask_base_of(p.b0, b, p.rows_per_seed, p.H_all, p.h0, h, S);
   const int ka = 16 * warp;  // the warp's keys in the block
 
   const int n_tiles = (S + BQ_KV - 1) / BQ_KV;
@@ -687,9 +707,9 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DqTiles<float, D>::smem))
   const T* v = (const T*)p.v + b * p.vs[0] + h * p.vs[1];
   const T* dout = (const T*)p.dout + b * p.ds[0] + h * p.ds[1];
   const float* bias = p.bias + (int64_t)b * S;
-  const uint64_t seed = (uint64_t)p.seed[b / p.rows_per_seed];
+  const uint64_t seed = mask_seed(p.seed, p.b0, b, p.rows_per_seed);
   const uint64_t head_base = (uint64_t)(b * H + h) * S;  // the stats and delta rows
-  const uint64_t mask_base = (uint64_t)((b % p.rows_per_seed) * H + h) * S;
+  const uint64_t mask_base = mask_base_of(p.b0, b, p.rows_per_seed, p.H_all, p.h0, h, S);
   const int n_tiles = (S + BK_DQ - 1) / BK_DQ;
 
   load_tile<T, BQ_DQ, D, LQ, NT_BWD>(sQ, q, p.qs[2], q0, S);
@@ -748,9 +768,9 @@ __global__ void __launch_bounds__(NT_BWD, smem_blocks(DqTiles<float, D>::smem))
 
 // The keep mask of (B, H, S, S) as uint8, one thread per Philox group
 // (rows i0 with bit 3 clear, even columns j0)
-__global__ void attn_dropout_mask_kernel(int B, int H, int S, int rows_per_seed,
-                                         const int64_t* seed_ptr, uint32_t threshold,
-                                         uint8_t* out) {
+__global__ void attn_dropout_mask_kernel(int B, int H, int S, int rows_per_seed, int b0,
+                                         int h0, int H_all, const int64_t* seed_ptr,
+                                         uint32_t threshold, uint8_t* out) {
   const int half = (S + 1) / 2;
   const int64_t n = (int64_t)B * H * S * half;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -759,9 +779,9 @@ __global__ void attn_dropout_mask_kernel(int B, int H, int S, int rows_per_seed,
     const int64_t bh = e / ((int64_t)half * S);
     if (i0 & 8) continue;
     const int b = (int)(bh / H), h = (int)(bh % H);
-    const uint64_t mask_base = (uint64_t)((b % rows_per_seed) * H + h) * S;
+    const uint64_t mask_base = mask_base_of(b0, b, rows_per_seed, H_all, h0, h, S);
     const uint32_t keep =
-        keep_bits(mask_base, S, i0, j0, (uint64_t)seed_ptr[b / rows_per_seed], threshold);
+        keep_bits(mask_base, S, i0, j0, mask_seed(seed_ptr, b0, b, rows_per_seed), threshold);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int i = i0 + 8 * (w >> 1), j = j0 + (w & 1);
@@ -803,14 +823,21 @@ cudaError_t bwd(const Params& p, cudaStream_t stream) {
                 DqTiles<T, D>::smem, stream, p);
 }
 
+// Whether the block (b0, B of B_all; h0, H of H_all) and the n_seeds seeds fit.
+bool block_fits(int B, int H, int n_seeds, int b0, int B_all, int h0, int H_all) {
+  return n_seeds >= 1 && B_all % n_seeds == 0 && b0 >= 0 && b0 + B <= B_all && h0 >= 0 &&
+         h0 + H <= H_all;
+}
+
 Params make_params(int B, int H, int S, const void* q, const int64_t* qs, const void* k,
                    const int64_t* ks, const void* v, const int64_t* vs, const float* bias,
-                   const int64_t* seed, int n_seeds, float scale, int threshold,
-                   float keep_prob, int dropout) {
+                   const int64_t* seed, int n_seeds, int b0, int B_all, int h0, int H_all,
+                   float scale, int threshold, float keep_prob, int dropout) {
   Params p = {};
   p.q = q, p.k = k, p.v = v, p.bias = bias, p.seed = seed;
   for (int i = 0; i < 3; ++i) p.qs[i] = qs[i], p.ks[i] = ks[i], p.vs[i] = vs[i];
-  p.B = B, p.H = H, p.S = S, p.rows_per_seed = B / n_seeds;
+  p.B = B, p.H = H, p.S = S, p.rows_per_seed = B_all / n_seeds;
+  p.b0 = b0, p.h0 = h0, p.H_all = H_all;
   p.scale = scale, p.keep_prob = keep_prob, p.inv_keep = 1.f / keep_prob;
   p.threshold = (uint32_t)threshold;
   p.dropout = dropout;
@@ -821,20 +848,22 @@ Params make_params(int B, int H, int S, const void* q, const int64_t* qs, const 
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
 // D: 64 or 128; seed: n_seeds int64 elements on the device, n_seeds dividing
-// B. Each returns cudaGetLastError() after its launches (or the error that
-// refused one); cudaErrorInvalidValue for a dtype, D or n_seeds it lacks.
+// B_all; the call is rows b0 .. b0 + B - 1 of B_all and heads h0 .. h0 + H - 1
+// of H_all (0, B, 0, H for a call of its own). Each returns cudaGetLastError()
+// after its launches (or the error that refused one); cudaErrorInvalidValue
+// for a dtype, D, n_seeds or block it lacks.
 extern "C" {
 
 int eeg_attn_fwd(int dtype, int D, int B, int H, int S, const void* q, int64_t qsb,
                  int64_t qsh, int64_t qss, const void* k, int64_t ksb, int64_t ksh,
                  int64_t kss, const void* v, int64_t vsb, int64_t vsh, int64_t vss,
-                 const float* bias, const int64_t* seed, int n_seeds, float scale,
-                 int threshold, float keep_prob, int dropout, void* out, float* stats,
-                 void* stream) {
+                 const float* bias, const int64_t* seed, int n_seeds, int b0, int B_all,
+                 int h0, int H_all, float scale, int threshold, float keep_prob, int dropout,
+                 void* out, float* stats, void* stream) {
   const int64_t qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
-  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
-  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, scale, threshold,
-                         keep_prob, dropout);
+  if (!block_fits(B, H, n_seeds, b0, B_all, h0, H_all)) return cudaErrorInvalidValue;
+  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, b0, B_all, h0,
+                         H_all, scale, threshold, keep_prob, dropout);
   p.out = out, p.stats = stats;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return fwd<float, 64>(p, st);
@@ -847,14 +876,15 @@ int eeg_attn_fwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
 int eeg_attn_bwd(int dtype, int D, int B, int H, int S, const void* q, int64_t qsb,
                  int64_t qsh, int64_t qss, const void* k, int64_t ksb, int64_t ksh,
                  int64_t kss, const void* v, int64_t vsb, int64_t vsh, int64_t vss,
-                 const float* bias, const int64_t* seed, int n_seeds, float scale,
-                 int threshold, float keep_prob, int dropout, const void* out,
-                 const float* stats, const void* dout, int64_t dsb, int64_t dsh, int64_t dss,
-                 float* delta, void* dq, void* dk, void* dv, void* stream) {
+                 const float* bias, const int64_t* seed, int n_seeds, int b0, int B_all,
+                 int h0, int H_all, float scale, int threshold, float keep_prob, int dropout,
+                 const void* out, const float* stats, const void* dout, int64_t dsb,
+                 int64_t dsh, int64_t dss, float* delta, void* dq, void* dk, void* dv,
+                 void* stream) {
   const int64_t qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
-  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
-  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, scale, threshold,
-                         keep_prob, dropout);
+  if (!block_fits(B, H, n_seeds, b0, B_all, h0, H_all)) return cudaErrorInvalidValue;
+  Params p = make_params(B, H, S, q, qs, k, ks, v, vs, bias, seed, n_seeds, b0, B_all, h0,
+                         H_all, scale, threshold, keep_prob, dropout);
   p.o = out, p.stats = (float*)stats, p.dout = dout, p.delta = delta;
   p.ds[0] = dsb, p.ds[1] = dsh, p.ds[2] = dss;
   p.dq = dq, p.dk = dk, p.dv = dv;
@@ -868,13 +898,14 @@ int eeg_attn_bwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
 
 // The kernels' keep mask for (B, H, S, S), as uint8: a test hook that calls
 // the same keep_bits as the kernels; nothing on the training path calls it.
-int eeg_attn_dropout_mask(int B, int H, int S, const int64_t* seed, int n_seeds,
-                          int threshold, uint8_t* out, void* stream) {
-  if (n_seeds < 1 || B % n_seeds != 0) return cudaErrorInvalidValue;
+int eeg_attn_dropout_mask(int B, int H, int S, const int64_t* seed, int n_seeds, int b0,
+                          int B_all, int h0, int H_all, int threshold, uint8_t* out,
+                          void* stream) {
+  if (!block_fits(B, H, n_seeds, b0, B_all, h0, H_all)) return cudaErrorInvalidValue;
   const int64_t n = (int64_t)B * H * S * ((S + 1) / 2);
   const int64_t blocks = (n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535;
   attn_dropout_mask_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      B, H, S, B / n_seeds, seed, (uint32_t)threshold, out);
+      B, H, S, B_all / n_seeds, b0, h0, H_all, seed, (uint32_t)threshold, out);
   return cudaGetLastError();
 }
 

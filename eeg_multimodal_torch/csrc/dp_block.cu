@@ -24,6 +24,11 @@
 // e^eps is the single model's call; e^eps is read from device memory where
 // it differs per member, so a sweep step needs neither a sync nor M launches.
 //
+// A launch may hold rows r0 .. r0 + B - 1 of a larger batch (a rank's data
+// shard under a mesh): row r of a member's block then draws as global row
+// r0 + r, n = (r0 + r) F + c, so the shard's noise is its slice of the
+// global call's. r0 = 0 is the call of its own.
+//
 // The noise is a function of (seed, flat index n = r F + c) alone: element n
 // takes word n & 3 of philox4x32_10(n & ~3, seed) (philox.cuh). So one call
 // serves four neighbouring elements, the forward and both halves of the
@@ -244,13 +249,15 @@ __device__ __forceinline__ void row_min_max(const float* __restrict__ f, const R
 __global__ void __launch_bounds__(NT_FWD)
     dp_fwd_kernel(const float* __restrict__ f, const float* __restrict__ dp_all,
                   const int64_t* __restrict__ seed_p, const float* __restrict__ exp_eps_p,
-                  float* __restrict__ out, int B, int F, float exp_eps_host) {
+                  float* __restrict__ out, int B, int F, float exp_eps_host, int r0) {
   __shared__ float red[2][NT_FWD / 32];
   const Member mem = member_of(blockIdx.x / B, B, F, dp_all, seed_p, exp_eps_p, exp_eps_host);
-  f += mem.off, out += mem.off;
+  // the row and its flat indices are the global row r0 + r's: the arrays'
+  // base moves back by r0 rows, so that index n addresses the launch's row
+  f += mem.off - (int64_t)r0 * F, out += mem.off - (int64_t)r0 * F;
   const float* __restrict__ dp = mem.dp;
   const float exp_eps = mem.exp_eps;
-  const Row row = row_of(blockIdx.x % B, F);
+  const Row row = row_of(r0 + blockIdx.x % B, F);
   const int k = threadIdx.x & 3, j = blockIdx.y * (NT_FWD / 4) + (threadIdx.x >> 2);
   const int64_t n = (row.q_lo + j) * 4 + k;  // the thread's flat element
   const bool mine = inside(row, j, k);
@@ -397,7 +404,7 @@ __device__ __forceinline__ void df_slice(const float* __restrict__ f,
 __device__ __forceinline__ void ddp_cols(const float* __restrict__ g,
                                          const float* __restrict__ dp, uint64_t seed,
                                          float* __restrict__ ddp, int B, int F, float exp_eps,
-                                         int cb) {
+                                         int cb, int r0) {
   __shared__ float4 part[NT / 32][32];  // [warp][lane]
   __shared__ float scale_k[4][32];    // [column c + k][lane]
   static_assert(NT / 32 == 4, "warp k computes the DP factor of column c + k");
@@ -419,7 +426,7 @@ __device__ __forceinline__ void ddp_cols(const float* __restrict__ g,
     for (int r = warp; r < B; r += NT / 32) {
       const int64_t n = (int64_t)r * F + c;
       const float4 gg = load4(g, n, n - c, n - c + F, vec, 0.f);  // columns past F read 0
-      const float4 z = noise4(n, seed);
+      const float4 z = noise4(n + (int64_t)r0 * F, seed);  // global row r0 + r's noise
       acc.x += gg.x * z.x;
       acc.y += gg.y * z.y;
       acc.z += gg.z * z.z;
@@ -448,7 +455,7 @@ __global__ void __launch_bounds__(NT)
                   const float* __restrict__ dp, const int64_t* __restrict__ seed_p,
                   const float* __restrict__ exp_eps_p, float* __restrict__ df,
                   float* __restrict__ ddp, int B, int F, float exp_eps, int slices,
-                  int df_blocks, int col_blocks) {
+                  int df_blocks, int col_blocks, int r0) {
   const int b = blockIdx.x;
   if (b < df_blocks) {
     // df needs no DP, seed or eps: only the member's row offset
@@ -459,7 +466,7 @@ __global__ void __launch_bounds__(NT)
     const int m = (b - df_blocks) / col_blocks;
     const Member mem = member_of(m, B, F, dp, seed_p, exp_eps_p, exp_eps);
     ddp_cols(g + mem.off, mem.dp, mem.seed, ddp + (int64_t)m * F, B, F, mem.exp_eps,
-             (b - df_blocks) % col_blocks);
+             (b - df_blocks) % col_blocks, r0);
   }
 }
 
@@ -477,27 +484,30 @@ int slices_for(int F, int groups) {
 // Plain C interface, loaded with ctypes. M members of B rows each: f, g,
 // out, df: (M B, F) contiguous f32; dp, ddp: (M, F) f32; seed: M int64;
 // exp_eps: M f32 values of e^eps on the device, or null for the host's
-// exp_eps_host (e^eps rounded to f32) for every member. Each returns
+// exp_eps_host (e^eps rounded to f32) for every member; r0: the global row
+// of each member's first row (0 for a call of its own). Each returns
 // cudaGetLastError() after its launch.
 extern "C" {
 
 int eeg_dp_fwd(const float* f, const float* dp, const int64_t* seed, const float* exp_eps,
-               float* out, int M, int B, int F, float exp_eps_host, void* stream) {
+               float* out, int M, int B, int F, float exp_eps_host, int r0, void* stream) {
+  if (r0 < 0) return cudaErrorInvalidValue;
   dp_fwd_kernel<<<dim3(M * B, slices_for(F, NT_FWD / 4)), NT_FWD, 0, (cudaStream_t)stream>>>(
-      f, dp, seed, exp_eps, out, B, F, exp_eps_host);
+      f, dp, seed, exp_eps, out, B, F, exp_eps_host, r0);
   return cudaGetLastError();
 }
 
 // df or ddp null leaves that half out of the grid (not both).
 int eeg_dp_bwd(const float* f, const float* g, const float* dp, const int64_t* seed,
                const float* exp_eps, float* df, float* ddp, int M, int B, int F,
-               float exp_eps_host, void* stream) {
+               float exp_eps_host, int r0, void* stream) {
+  if (r0 < 0) return cudaErrorInvalidValue;
   const int slices = slices_for(F, NT);
   const int df_blocks = df ? M * B * slices : 0;
   const int col_blocks = ((F + 3) / 4 + 31) / 32;
   const int ddp_blocks = ddp ? M * col_blocks : 0;
   dp_bwd_kernel<<<df_blocks + ddp_blocks, NT, 0, (cudaStream_t)stream>>>(
-      f, g, dp, seed, exp_eps, df, ddp, B, F, exp_eps_host, slices, df_blocks, col_blocks);
+      f, g, dp, seed, exp_eps, df, ddp, B, F, exp_eps_host, slices, df_blocks, col_blocks, r0);
   return cudaGetLastError();
 }
 

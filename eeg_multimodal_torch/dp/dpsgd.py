@@ -27,6 +27,14 @@ per-example losses then give every row's gradient, exactly its own loss's,
 since no op of TICA_DPSGD couples rows: the min-max is per row, LayerNorm
 per token, attention within a row. The frozen leaves do not require grad,
 so autograd stops at the last BERT layer: one attention backward a step.
+
+Under a (data, model) mesh (``parallel/train.py::shard_dpsgd_trainer``) the
+window's rows split over 'data' and the params are Megatron shards: each rank
+takes its rows' per-example gradients of its shards, the clip norm of a row
+sums the squared norms of the split leaves over the model group and adds the
+whole leaves' once, the one Gaussian draw is drawn at the whole leaves'
+shapes and sliced, and the clipped weighted sum is summed over the data
+group before the noise is added, once.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..parallel import sharding
 from ..utils.trees import tree_items, tree_map_with_path
 from . import accountant
 
@@ -77,33 +86,60 @@ def poisson_batch_indices(gen: torch.Generator, n: int, q: float,
     return idx, mask[idx].to(torch.float32)
 
 
-def clip_per_example(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_per_example(grads: List[torch.Tensor], max_norm: float, paths=None,
+                     mesh=None) -> List[torch.Tensor]:
     """Clip each example's gradient to global L2 norm <= ``max_norm``:
     ``grads`` are the trainable leaves' gradients, each with a leading
     per-example axis; the norm is over all of them, in f32, and the scale
-    min(1, C / (norm + 1e-12))."""
+    min(1, C / (norm + 1e-12)). Under a ``mesh`` the leaves at ``paths``
+    are shards: the split leaves' squares summed over the model group, the
+    whole ones' counted once."""
     B = grads[0].shape[0]
-    sq = sum(torch.linalg.vecdot(g.reshape(B, -1).float(), g.reshape(B, -1).float())
-             for g in grads)
-    scale = torch.clamp(max_norm / (torch.sqrt(sq) + 1e-12), max=1.0)
+
+    def sq(gs):
+        return sum(torch.linalg.vecdot(g.reshape(B, -1).float(), g.reshape(B, -1).float())
+                   for g in gs)
+
+    if mesh is None or mesh.model == 1:
+        total = sq(grads)
+    else:
+        split = [sharding.model_dim(p) is not None for p in paths]
+        total = sharding.reduce_from_model(
+            sq([g for g, s in zip(grads, split) if s]), mesh) + sq(
+            [g for g, s in zip(grads, split) if not s])
+    scale = torch.clamp(max_norm / (torch.sqrt(total) + 1e-12), max=1.0)
     return [g * scale.view((B,) + (1,) * (g.dim() - 1)) for g in grads]
 
 
 def noisy_aggregate(clipped: List[torch.Tensor], weight, noise_multiplier: float,
                     max_norm: float, expected_batch: int,
-                    gen: Optional[torch.Generator] = None, noise=None) -> List[torch.Tensor]:
+                    gen: Optional[torch.Generator] = None, noise=None, paths=None,
+                    mesh=None) -> List[torch.Tensor]:
     """sum_b weight_b clipped_b + sigma C N(0, 1) per coordinate, divided by
     the expected batch (not the rows drawn): the Opacus DPOptimizer's
     aggregation. The N(0, 1) draw is one call over every coordinate, from
-    ``gen``; ``noise`` hands it in instead, one tensor per leaf (tests)."""
+    ``gen``; ``noise`` hands it in instead, one tensor per (whole) leaf
+    (tests). Under a ``mesh`` (the leaves at ``paths`` shards, ``weight``
+    the rank's rows) the sum is summed over the data group and the noise,
+    drawn whole, sliced to the shards."""
+    like = [g[0] for g in clipped]
+    if mesh is None:
+        sizes = [t.numel() for t in like]
+    else:
+        sizes = [sharding.global_numel(p, t, mesh) for p, t in zip(paths, like)]
     if noise is None:
-        flat = torch.randn(sum(g[0].numel() for g in clipped), generator=gen,
-                           device=clipped[0].device)
-        noise = [n.view_as(g[0]) for n, g in zip(flat.split([g[0].numel() for g in clipped]),
-                                                  clipped)]
+        noise = torch.randn(sum(sizes), generator=gen, device=clipped[0].device).split(sizes)
+    else:
+        noise = [z.reshape(-1) for z in noise]
+    if mesh is None:
+        noise = [z.view_as(t) for z, t in zip(noise, like)]
+    else:
+        noise = [sharding.shard_of_whole(mesh, p, z, t) for p, z, t in zip(paths, noise, like)]
+    sums = [torch.tensordot(weight, g, dims=1) for g in clipped]
+    if mesh is not None:
+        sums = sharding.all_reduce_data(sums, mesh)
     scale = noise_multiplier * max_norm
-    return [(torch.tensordot(weight, g, dims=1) + scale * z) / expected_batch
-            for g, z in zip(clipped, noise)]
+    return [(s + scale * z) / expected_batch for s, z in zip(sums, noise)]
 
 
 @dataclasses.dataclass
@@ -159,7 +195,7 @@ def per_example_grads(losses_fn, params, trainable_pred: Callable[[str], bool],
 
 
 def make_dpsgd_step(losses_fn, trainable_pred: Callable[[str], bool], optimizer,
-                    noise_multiplier: float, max_norm: float, expected_batch: int):
+                    noise_multiplier: float, max_norm: float, expected_batch: int, mesh=None):
     """Build the DP-SGD step (dpsgd.py:121-151 there).
 
     ``losses_fn(params, batch, gen) -> (B,)`` is the per-example loss of a
@@ -168,14 +204,20 @@ def make_dpsgd_step(losses_fn, trainable_pred: Callable[[str], bool], optimizer,
     ``step(params, opt_state, batch, weight, gen, noise=None)`` updates the
     trainable leaves of ``params`` in place and returns the optimizer
     state: the forward's dropout draws from ``gen``, then the Gaussian
-    noise (``noise``, one N(0, 1) tensor a trainable leaf, hands it in)."""
+    noise (``noise``, one N(0, 1) tensor a trainable leaf, hands it in).
+    Under a ``mesh`` ``losses_fn`` gives the rank's rows' losses (module
+    docstring)."""
 
     def step(params, opt_state, batch, weight, gen, noise=None):
+        paths = [p for p, _ in tree_items(params) if trainable_pred(p)]
+        if mesh is not None:
+            r0, rows = sharding.rows_of(mesh, weight.shape[0])
+            weight = weight[r0:r0 + rows]
         grads = per_example_grads(lambda tree: losses_fn(tree, batch, gen), params,
                                   trainable_pred, weight.shape[0])
-        clipped = clip_per_example(grads, max_norm)
+        clipped = clip_per_example(grads, max_norm, paths, mesh)
         agg = noisy_aggregate(clipped, weight, noise_multiplier, max_norm, expected_batch,
-                              gen, noise)
+                              gen, noise, paths, mesh)
         return optimizer.update(trainable_leaves(params, trainable_pred), agg, opt_state)
 
     return step

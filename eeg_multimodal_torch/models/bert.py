@@ -18,6 +18,13 @@ then holding M groups of rows, member after member. Each group reads its
 own member's embedding tables and goes through its weights
 (``models/layers.py``); a group of M generators gives each member its own
 dropout masks and attention seed (the kernels' seed vector, G = M).
+
+Under a (data, model) mesh (``parallel/``) ``apply`` takes a ``layout`` and
+runs on the rank's rows and Megatron shards: the packed QKV concatenates the
+rank's query, key and value columns, 12 / model whole heads, which go to the
+attention kernels as their block of the global call (rows b0 .., heads h0 ..
+of 12), so each rank draws its slice of the global mask; the attention and
+FFN outputs are row-parallel, their biases added once after the sum.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as fused
-from .layers import draw_seeds, dropout, layer_norm, linear
+from .layers import column_parallel, draw_seeds, dropout, layer_norm, linear, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +95,7 @@ def init(gen: torch.Generator, config: BertConfig, device):
     return params
 
 
-def _attention(q, k, v, attn_bias, attn_drop, gen):
+def _attention(q, k, v, attn_bias, attn_drop, gen, layout=None, num_heads=None):
     """softmax(QK^T/sqrt(D) + bias) V over (B, H, S, D).
 
     The one dispatch point of self-attention, as ``bert.py:156-172`` of the
@@ -101,41 +108,48 @@ def _attention(q, k, v, attn_bias, attn_drop, gen):
     branch. The JAX package's gate sends S = 80 to its einsum branch, which
     multiplies f32 probabilities by V; the kernels, like the JAX kernel, round
     P to the input dtype first (one bf16 rounding under the compute cast).
+    Under a ``layout`` the call is the block (rows b0 .., heads
+    model_rank H .. of ``num_heads``) of the global call.
     """
-    S, D = q.shape[-2:]
+    B, H, S, D = q.shape
+    block = fused.Block()
+    if layout is not None:
+        block = fused.Block(layout.b0, layout.rows, layout.mesh.model_rank * H, num_heads)
     if fused.attention_available(S, D):
         bias = attn_bias[:, 0, 0, :]  # (B, S)
         if gen is not None and attn_drop > 0.0:
-            return fused.fused_attention(q, k, v, bias, draw_seeds(gen, q.device), attn_drop)
+            return fused.fused_attention(q, k, v, bias, draw_seeds(gen, q.device), attn_drop,
+                                         block=block)
         seed = torch.zeros(1, dtype=torch.int64, device=q.device)
-        return fused.fused_attention(q, k, v, bias, seed, 0.0)
-    return attention_unfused(q, k, v, attn_bias, attn_drop, gen)
+        return fused.fused_attention(q, k, v, bias, seed, 0.0, block=block)
+    return attention_unfused(q, k, v, attn_bias, attn_drop, gen, layout)
 
 
-def attention_unfused(q, k, v, attn_bias, attn_drop, gen):
+def attention_unfused(q, k, v, attn_bias, attn_drop, gen, layout=None):
     """The plain branch: (B, H, S, S) f32 scores and probs in device memory;
     returns f32, which the caller casts to the activations' dtype."""
     q, k, v = q.float(), k.float(), v.float()
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     probs = torch.softmax(scores + attn_bias, dim=-1)  # additive mask, HF-style
-    return torch.matmul(dropout(probs, attn_drop, gen), v)
+    return torch.matmul(dropout(probs, attn_drop, gen, layout, 1), v)
 
 
-def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen):
+def _self_attention(p, x, attn_bias, num_heads, attn_drop, gen, layout=None):
     B, S, H = x.shape
     D = H // num_heads
-    # packed QKV: one (H, 3H) matmul instead of three (bert.py:124-148 there);
+    W = p["query"]["kernel"].shape[-1]  # this rank's query columns: W / D whole heads
+    # packed QKV: one (H, 3W) matmul instead of three (bert.py:124-148 there);
     # the tree keeps the separate torch-shaped q/k/v entries
     packed = {name: torch.cat([p[m][name] for m in ("query", "key", "value")], dim=-1)
               for name in ("kernel", "bias")}
-    qkv = linear(packed, x)
+    qkv = column_parallel(packed, x, layout)
     # strided (B, H, S, D) views of qkv: the kernels take them without copies
     q, k, v = (
-        qkv[..., i * H:(i + 1) * H].reshape(B, S, num_heads, D).transpose(1, 2)
+        qkv[..., i * W:(i + 1) * W].reshape(B, S, W // D, D).transpose(1, 2)
         for i in range(3)
     )
-    ctx = _attention(q, k, v, attn_bias, attn_drop, gen)
-    return linear(p["output"], ctx.transpose(1, 2).reshape(B, S, H).to(x.dtype))
+    ctx = _attention(q, k, v, attn_bias, attn_drop, gen, layout, num_heads)
+    return row_parallel(p["output"], ctx.transpose(1, 2).reshape(B, S, W).to(x.dtype), layout)
 
 
 def _member_embeddings(emb, input_ids, token_type_ids):
@@ -160,10 +174,12 @@ def apply(
     config: BertConfig = BertConfig(),
     gen=None,
     token_type_ids=None,
+    layout=None,
 ):
     """Forward pass; returns ``(sequence_output, pooled_output)``. Dropout
     draws from ``gen`` (a generator or a group, ``layers.py``) and is off
-    when it is None."""
+    when it is None. ``layout``: the rank's place on a mesh (module
+    docstring)."""
     S = input_ids.shape[1]
     emb = params["embeddings"]
     if emb["word"].dim() == 3:
@@ -175,7 +191,7 @@ def apply(
         else:
             x = x + emb["token_type"][token_type_ids]
     x = layer_norm(emb["ln"], x, config.layer_norm_eps)
-    x = dropout(x, config.hidden_dropout, gen)
+    x = dropout(x, config.hidden_dropout, gen, layout)
 
     # HF extended attention mask: (1 - m) * dtype_min added to the logits
     neg = torch.finfo(torch.float32).min
@@ -184,12 +200,13 @@ def apply(
     for layer in params["layers"]:
         attn_out = _self_attention(
             layer["attn"], x, attn_bias, config.num_heads,
-            config.attention_dropout, gen,
+            config.attention_dropout, gen, layout,
         )
-        attn_out = dropout(attn_out, config.hidden_dropout, gen)
+        attn_out = dropout(attn_out, config.hidden_dropout, gen, layout)
         x = layer_norm(layer["attn"]["ln"], x + attn_out, config.layer_norm_eps)
-        h = F.gelu(linear(layer["ffn"]["intermediate"], x))  # erf GELU
-        h = dropout(linear(layer["ffn"]["output"], h), config.hidden_dropout, gen)
+        h = F.gelu(column_parallel(layer["ffn"]["intermediate"], x, layout))  # erf GELU
+        h = dropout(row_parallel(layer["ffn"]["output"], h, layout), config.hidden_dropout,
+                    gen, layout)
         x = layer_norm(layer["ffn"]["ln"], x + h, config.layer_norm_eps)
 
     pooled = torch.tanh(linear(params["pooler"], x[:, 0]))

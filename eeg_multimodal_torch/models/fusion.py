@@ -35,6 +35,13 @@ tree takes the batch repeated M times (:func:`repeat_batch`), a per-member
 (M,) ``epsilon`` and a group of M generators: member m's rows go through
 its own weights, DP row, epsilon and draws, one set of launches for all M
 (``models/layers.py``, ``ops/dp.py``, ``ops/dp_fused.py``).
+
+Under a (data, model) mesh (``parallel/``) ``apply`` takes a ``layout``
+(``parallel/sharding.Layout``): the batch holds the rank's rows, BERT and the
+cross block run on their Megatron shards, ``fc1`` is column- and ``fc2``
+row-parallel, and every draw (dropout, the DP block's seed and noise) is the
+rank's block of the meshless forward's; the fused DP kernels draw the rank's
+rows as global rows (``r0``).
 """
 from __future__ import annotations
 
@@ -204,7 +211,7 @@ def repeat_batch(batch, members: int):
     return {k: v.repeat(members, *(1,) * (v.dim() - 1)) for k, v in batch.items()}
 
 
-def _encode_streams(params, batch, config: FusionConfig, gen):
+def _encode_streams(params, batch, config: FusionConfig, gen, layout=None):
     """The two modality streams: (feat_a, seq_a, feat_b, seq_b), stream a
     the EEG stream, b the act stream (fusion.py:187-221 there). A ``t``
     stream is BERT's (pooled, sequence); ``tt`` runs the one BERT on both,
@@ -215,7 +222,8 @@ def _encode_streams(params, batch, config: FusionConfig, gen):
 
     def stream(kind, x, mask):
         if kind == "t":
-            seq, pooled = bert_mod.apply(params["bert"], x, mask, config.bert_cfg(), gen=gen)
+            seq, pooled = bert_mod.apply(params["bert"], x, mask, config.bert_cfg(), gen=gen,
+                                         layout=layout)
             return pooled, seq
         emb = L.linear(params["visual_encoder"], x.to(dtype))  # (B, 1, 768)
         return emb[:, 0, :], emb
@@ -225,14 +233,14 @@ def _encode_streams(params, batch, config: FusionConfig, gen):
     return feat_a, seq_a, feat_b, seq_b
 
 
-def encode_features(params, batch, config: FusionConfig, gen, train: bool):
+def encode_features(params, batch, config: FusionConfig, gen, train: bool, layout=None):
     """Everything upstream of the DP block: both streams, the cross block
     and the raw (B, F) f32 concat (models.py:56-69). Never reads ``DP``.
     Dropout draws from ``gen`` when ``train``: a generator, or a group of G
     generators for a batch of G stacked batches, each drawing for its own
     (``models/layers.py``)."""
     drop = gen if train else None
-    feat_a, seq_a, feat_b, seq_b = _encode_streams(params, batch, config, drop)
+    feat_a, seq_a, feat_b, seq_b = _encode_streams(params, batch, config, drop, layout)
     parts = [feat_a, feat_b]
     if config.with_cross_attention:
         if config.cross_atn_type == "single_stream":
@@ -243,7 +251,7 @@ def encode_features(params, batch, config: FusionConfig, gen, train: bool):
             mean = seq_a.mean(dim=1, keepdim=True)
             dt = torch.promote_types(mean.dtype, seq_b.dtype)
             src = torch.cat([mean.to(dt), seq_b.to(dt)], dim=1)
-            cross = L.encoder(params["cross"], src, N_HEADS, gen=drop).mean(dim=1)
+            cross = L.encoder(params["cross"], src, N_HEADS, gen=drop, layout=layout).mean(dim=1)
         else:
             # decoder(tgt, memory): ti/tt take the act stream as tgt, it/ii
             # the EEG stream (models.py:64-67, 157-160, 202-203); tt/ii pass
@@ -256,14 +264,15 @@ def encode_features(params, batch, config: FusionConfig, gen, train: bool):
                 tgt_kpm, mem_kpm = (act_kpm, eeg_kpm) if a_first else (eeg_kpm, act_kpm)
             cross = L.decoder(params["cross"], tgt, memory, N_HEADS,
                               tgt_key_padding_mask=tgt_kpm, memory_key_padding_mask=mem_kpm,
-                              gen=drop).mean(dim=1)
+                              gen=drop, layout=layout).mean(dim=1)
         parts.append(cross)
     # the head after the concat stays f32 (fusion.py:281-284 there)
     return torch.cat([t.to(torch.float32) for t in parts], dim=1)
 
 
 def apply_head(params, feature_raw, config: FusionConfig, epsilon, hard: bool,
-               gen, train: bool = False, dp_noise=None, return_features: bool = False):
+               gen, train: bool = False, dp_noise=None, return_features: bool = False,
+               layout=None):
     """min-max normalize -> DP mechanism -> fc1/fc2 -> classifier
     (models.py:70-82; fusion.py:287-337 there).
 
@@ -298,40 +307,44 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon, hard: bool,
         dp = dp.reshape(-1, dp.shape[-1])
         if dp.shape[0] < seed.shape[0]:  # G groups of draws over one model's DP row
             dp = dp.expand(seed.shape[0], -1).contiguous()
-        feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise)
+        feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise,
+                                             r0=0 if layout is None else layout.b0)
     else:
         feature = dp_ops.minmax_normalize(feature_raw)
         if mode == "lapacian_dropout":
             if dp_noise is None:
-                dp_noise = dp_ops.laplace_noise(feature.shape, 1.0, gen, feature.device)
+                dp_noise = dp_ops.laplace_noise(feature.shape, 1.0, gen, feature.device, layout)
             feature = dp_ops.lap_dropout_fast(feature, params["DP"], epsilon, dp_noise,
                                               prefix_eps_hat=config.prefix_eps_hat)
         elif mode == "lapacian_dropout_equal_weight":
             feature = dp_ops.equal_weight_dp(feature, epsilon, config.dropout_rate, train, gen,
-                                             noise=dp_noise)
+                                             noise=dp_noise, layout=layout)
         elif mode == "feature_all_lap":
             # PriConcat (main_0425.py:111-121): the minmax is done above, so
             # not per_sample_laplace, which would normalize a second time
             if dp_noise is None:
-                dp_noise = dp_ops.laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device)
+                dp_noise = dp_ops.laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device,
+                                                layout)
             scale = dp_ops.member_scalar(epsilon, lambda e: 1.0 / e)
             feature = (dp_ops.by_member(feature, epsilon)
                        + dp_ops.by_member(dp_noise, epsilon) * scale).reshape(feature.shape)
-    h = torch.relu(L.linear(params["fc1"], feature))
-    h = torch.tanh(L.linear(params["fc2"], h))
+    h = torch.relu(L.column_parallel(params["fc1"], feature, layout))
+    h = torch.tanh(L.row_parallel(params["fc2"], h, layout))
     return L.linear(params["classifier"], h)
 
 
 def apply(params, batch, config: FusionConfig, epsilon, hard: bool,
-          gen, train: bool, dp_noise=None, return_features: bool = False):
+          gen, train: bool, dp_noise=None, return_features: bool = False, layout=None):
     """Forward pass -> logits (B, 2): encode_features then apply_head.
     ``gen`` seeds the dropout (``train`` only) and the DP noise (always);
-    ``NDP`` and ``DPSGD`` out of training draw nothing and take None."""
+    ``NDP`` and ``DPSGD`` out of training draw nothing and take None.
+    ``layout``: the rank's rows and shards under a mesh (module docstring);
+    the logits are then the rank's rows."""
     if config.dp_mode == "pri_gumbel":
         raise ValueError("use legacy_pri_gumbel_apply for the PriGumbel head")
-    feature_raw = encode_features(params, batch, config, gen, train)
+    feature_raw = encode_features(params, batch, config, gen, train, layout)
     return apply_head(params, feature_raw, config, epsilon, hard, gen, train, dp_noise,
-                      return_features)
+                      return_features, layout)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ from ``nn.TransformerEncoder`` (:235-236): post-LN, ReLU FFN of width 2048,
 dropout 0.1 (at four sites of an encoder layer, six of a decoder layer),
 key-padding masks that send masked scores to -inf.
 
+Under a (data, model) mesh (``parallel/``) the functions take a ``layout``
+(``parallel/sharding.Layout``) and run on the rank's local shards: its rows of
+the batch, and Megatron's split of the cross block (``in_proj`` whole,
+``out_proj`` and ``linear2`` row-parallel, ``linear1`` column-parallel; a
+row-parallel layer's bias added once, after the sum over the model group).
+Every dropout mask is drawn at its global shape and sliced to the rank's
+block, so the draws are the meshless forward's. ``layout`` None is the
+forward of one process.
+
 Under a bf16 compute cast the functions keep the JAX package's dtype trail
 (layers.py:80-143 there): a linear accumulates in f32, adds its bias in f32
 and rounds once to its input's dtype; LayerNorm runs in f32; dropout keeps
@@ -108,6 +117,32 @@ def linear(params, x):
     return F.linear(x.to(dt), kernel.t(), bias).to(x.dtype)
 
 
+def column_parallel(params, x, layout=None):
+    """:func:`linear` whose kernel and bias hold this rank's output columns:
+    the whole ``x`` enters through ``copy_to_model``."""
+    return linear(params, x if layout is None else layout.to_model(x))
+
+
+def row_parallel(params, x, layout=None):
+    """:func:`linear` whose kernel holds this rank's input rows (``x`` its
+    columns): the partial products summed over the model group in the
+    promoted dtype (f32 for bf16 inputs: the GEMM's own accumulation), then
+    the whole bias, once, and one rounding to x's dtype. Stacked (M, in,
+    out) kernels take M groups of rows, as :func:`linear` does."""
+    if layout is None or layout.model == 1:
+        return linear(params, x)
+    dt = torch.promote_types(x.dtype, params["kernel"].dtype)
+    acc = torch.float32 if dt == torch.bfloat16 else dt
+    kernel, bias = params["kernel"].to(acc), params["bias"].to(acc)
+    if kernel.dim() == 3:
+        M = kernel.shape[0]
+        y = torch.bmm(x.to(acc).reshape(M, -1, x.shape[-1]), kernel)
+        y = layout.from_model(y) + bias.unsqueeze(1)
+        return y.reshape(*x.shape[:-1], kernel.shape[-1]).to(x.dtype)
+    y = layout.from_model(torch.matmul(x.to(acc), kernel))
+    return (y + bias).to(x.dtype)
+
+
 def layer_norm(params, x, eps: float = 1e-5):
     """torch LayerNorm (biased variance over the last dim), computed in f32
     and cast back to x's dtype. A stacked (M, E) scale and bias scale and
@@ -141,13 +176,19 @@ def draw_seeds(gen, device):
                    (n,), gen)
 
 
-def dropout(x, rate: float, gen):
+def dropout(x, rate: float, gen, layout=None, model_axis=None):
     """Inverted dropout (torch semantics), the mask drawn along x's first
-    (batch) axis by :func:`grouped_rand`. Identity when ``gen`` is None."""
+    (batch) axis by :func:`grouped_rand`. Identity when ``gen`` is None.
+    Under a ``layout`` the mask is the global one's block (its rows, and
+    its model shard of ``model_axis`` where x is split there)."""
     if gen is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = grouped_rand(x.shape, gen, x.device) < keep
+    if layout is None:
+        mask = grouped_rand(x.shape, gen, x.device) < keep
+    else:
+        mask = layout.draw(lambda s, g: torch.rand(s, generator=g, device=x.device), x.shape,
+                           gen, model_axis) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -159,13 +200,16 @@ def multi_head_attention(
     key_padding_mask=None,  # (B, Sk) bool: True = ignore this key position
     dropout_rate: float = 0.0,
     gen=None,
+    layout=None,
 ):
     """torch nn.MultiheadAttention forward (batch-first, need_weights=False);
     masked keys get -inf scores (layers.py:136-138 of the JAX package).
     Everything up to the output projection runs in f32, whatever the dtypes
     of the inputs and weights; the output projection's input is cast to
     the query's dtype. Stacked (M, E, 3E) / (M, 3E) in-projections take M
-    groups of rows, as :func:`linear` does."""
+    groups of rows, as :func:`linear` does. Under a ``layout`` every model
+    rank computes every head (``in_proj`` is whole) and the row-parallel
+    output projection takes its columns."""
     B, Sq, E = query.shape
     Sk = key_value.shape[1]
     H = num_heads
@@ -185,9 +229,19 @@ def multi_head_attention(
     scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(D)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-    attn = dropout(torch.softmax(scores, dim=-1), dropout_rate, gen)
+    attn = dropout(torch.softmax(scores, dim=-1), dropout_rate, gen, layout)
     out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Sq, E).to(query.dtype)
-    return linear(params["out_proj"], out)
+    if layout is None:
+        return linear(params["out_proj"], out)
+    return row_parallel(params["out_proj"], layout.columns(out), layout)
+
+
+def _ffn(params, x, gen, dropout_rate, layout):
+    """linear2(dropout(relu(linear1(x)))): column- then row-parallel."""
+    last = x.dim() - 1
+    h = dropout(torch.relu(column_parallel(params["linear1"], x, layout)), dropout_rate, gen,
+                layout, last)
+    return row_parallel(params["linear2"], h, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -209,23 +263,24 @@ def decoder_layer_init(gen, d_model: int, device):
 def decoder_layer(
     params, tgt, memory, num_heads: int,
     tgt_key_padding_mask=None, memory_key_padding_mask=None,
-    gen=None, dropout_rate: float = P_DROP,
+    gen=None, dropout_rate: float = P_DROP, layout=None,
 ):
     """torch nn.TransformerDecoderLayer (norm_first=False, relu)."""
     x = tgt
     sa = multi_head_attention(
         params["self_attn"], x, x, num_heads,
         key_padding_mask=tgt_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+        layout=layout,
     )
-    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen))
+    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen, layout))
     ca = multi_head_attention(
         params["cross_attn"], x, memory, num_heads,
         key_padding_mask=memory_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+        layout=layout,
     )
-    x = layer_norm(params["norm2"], x + dropout(ca, dropout_rate, gen))
-    h = dropout(torch.relu(linear(params["linear1"], x)), dropout_rate, gen)
-    h = linear(params["linear2"], h)
-    return layer_norm(params["norm3"], x + dropout(h, dropout_rate, gen))
+    x = layer_norm(params["norm2"], x + dropout(ca, dropout_rate, gen, layout))
+    h = _ffn(params, x, gen, dropout_rate, layout)
+    return layer_norm(params["norm3"], x + dropout(h, dropout_rate, gen, layout))
 
 
 def _copies(layer, num_layers: int):
@@ -242,7 +297,7 @@ def decoder_init(gen, d_model: int, num_layers: int, device):
 def decoder(
     params, tgt, memory, num_heads: int,
     tgt_key_padding_mask=None, memory_key_padding_mask=None,
-    gen=None, dropout_rate: float = P_DROP,
+    gen=None, dropout_rate: float = P_DROP, layout=None,
 ):
     x = tgt
     for layer_params in params["layers"]:
@@ -250,7 +305,7 @@ def decoder(
             layer_params, x, memory, num_heads,
             tgt_key_padding_mask=tgt_key_padding_mask,
             memory_key_padding_mask=memory_key_padding_mask,
-            gen=gen, dropout_rate=dropout_rate,
+            gen=gen, dropout_rate=dropout_rate, layout=layout,
         )
     return x
 
@@ -266,18 +321,18 @@ def encoder_layer_init(gen, d_model: int, device):
 
 
 def encoder_layer(params, src, num_heads: int, src_key_padding_mask=None, gen=None,
-                  dropout_rate: float = P_DROP):
+                  dropout_rate: float = P_DROP, layout=None):
     """torch nn.TransformerEncoderLayer (norm_first=False, relu), the TISC
     single-stream block (ref: models.py:235-236)."""
     x = src
     sa = multi_head_attention(
         params["self_attn"], x, x, num_heads,
         key_padding_mask=src_key_padding_mask, dropout_rate=dropout_rate, gen=gen,
+        layout=layout,
     )
-    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen))
-    h = dropout(torch.relu(linear(params["linear1"], x)), dropout_rate, gen)
-    h = linear(params["linear2"], h)
-    return layer_norm(params["norm2"], x + dropout(h, dropout_rate, gen))
+    x = layer_norm(params["norm1"], x + dropout(sa, dropout_rate, gen, layout))
+    h = _ffn(params, x, gen, dropout_rate, layout)
+    return layer_norm(params["norm2"], x + dropout(h, dropout_rate, gen, layout))
 
 
 def encoder_init(gen, d_model: int, num_layers: int, device):
@@ -285,10 +340,10 @@ def encoder_init(gen, d_model: int, num_layers: int, device):
 
 
 def encoder(params, src, num_heads: int, src_key_padding_mask=None, gen=None,
-            dropout_rate: float = P_DROP):
+            dropout_rate: float = P_DROP, layout=None):
     x = src
     for layer_params in params["layers"]:
         x = encoder_layer(layer_params, x, num_heads,
                           src_key_padding_mask=src_key_padding_mask, gen=gen,
-                          dropout_rate=dropout_rate)
+                          dropout_rate=dropout_rate, layout=layout)
     return x

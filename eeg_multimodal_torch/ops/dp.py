@@ -37,11 +37,17 @@ from ..utils.seeding import grouped
 _U23 = 1.0 / (1 << 23)
 
 
-def random_bits(shape, generator, device="cpu"):
+def random_bits(shape, generator, device="cpu", layout=None):
     """Uniform 32-bit draws, held in int64 (torch has no uint32 sampler);
-    from a group of generators, one block of rows each."""
-    return grouped(lambda s, g: torch.randint(0, 1 << 32, s, generator=g, dtype=torch.int64,
-                                              device=device), shape, generator)
+    from a group of generators, one block of rows each. Under a mesh's
+    ``layout`` (``parallel/sharding.Layout``) the rank's rows of the global
+    draw."""
+    def draw(s, g):
+        return torch.randint(0, 1 << 32, s, generator=g, dtype=torch.int64, device=device)
+
+    if layout is not None:
+        return layout.draw(draw, shape, generator)
+    return grouped(draw, shape, generator)
 
 
 def per_member(epsilon) -> bool:
@@ -97,11 +103,12 @@ def laplace_from_bits(bits):
     return -torch.sign(u) * torch.log1p(-2.0 * u.abs())
 
 
-def laplace_noise(shape, scale: float, gen, device="cpu"):
+def laplace_noise(shape, scale: float, gen, device="cpu", layout=None):
     """iid Laplace(0, scale) of ``shape`` drawn from ``gen`` (ref:
     torch.distributions.Laplace, models.py:54,74), or from a group of
-    generators, one block of rows each."""
-    return laplace_from_bits(random_bits(shape, gen, device)) * scale
+    generators, one block of rows each; under a ``layout`` the rank's rows
+    of the global draw."""
+    return laplace_from_bits(random_bits(shape, gen, device, layout)) * scale
 
 
 def gumbel_noise(shape, gen, device="cpu"):
@@ -204,24 +211,28 @@ def lap_dropout_fast(feature, dp_param, epsilon, noise, prefix_eps_hat: bool = F
 
 
 def equal_weight_dp(feature, epsilon, dropout_rate: float, train: bool, gen=None,
-                    noise=None, keep=None):
+                    noise=None, keep=None, layout=None):
     """The equal-weight ablation (ref: models.py:399-405): ``nn.Dropout``
     at ``dropout_rate``, in training only, then one Laplace draw per sample,
     (B, 1), in eval too, at the scale lap_sigma = log((e^eps - r) / (1 - r))
     (the reciprocal of the scheme's scalar eps_hat). Draws the keep mask,
     then the noise, from ``gen``; ``keep`` (B, F) bool and ``noise`` (B, 1)
-    Laplace(0, 1) hand them in."""
+    Laplace(0, 1) hand them in. Under a ``layout`` both are the rank's rows
+    of the global draws."""
     if train and dropout_rate > 0.0:
         p_keep = 1.0 - dropout_rate
         if keep is None:
-            keep = grouped(lambda s, g: torch.rand(s, generator=g, device=feature.device),
-                           feature.shape, gen) < p_keep
+            def rand(s, g):
+                return torch.rand(s, generator=g, device=feature.device)
+
+            keep = (grouped(rand, feature.shape, gen) if layout is None
+                    else layout.draw(rand, feature.shape, gen)) < p_keep
         feature = torch.where(keep, feature / p_keep,
                               torch.zeros((), dtype=feature.dtype, device=feature.device))
     lap_sigma = member_scalar(
         epsilon, lambda e: _log((_exp(e) - dropout_rate) / (1.0 - dropout_rate)))
     if noise is None:
-        noise = laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device)
+        noise = laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device, layout)
     out = by_member(feature, epsilon) + by_member(noise, epsilon) * lap_sigma
     return out.reshape(feature.shape)
 

@@ -25,6 +25,11 @@ call over its rows alone, with its seed and its float epsilon, gives: its
 noise is ``laplace_plain`` of its seed over its own (B, F), and dDP (M, F)
 is each member's sum over its own rows.
 
+A rank's data shard under a mesh (``parallel/``) holds rows r0 .. r0 + B - 1
+of the global batch: given ``r0``, the kernels and ``laplace_plain`` draw its
+rows as those global rows, ``n = (r0 + r) F + c`` (in each member's block), so
+that the shard's noise is its slice of the global call's.
+
 Beside the kernels stand their plain PyTorch versions (``dp_block_plain``,
 ``dp_block_bwd_plain``, ``laplace_plain``), with the same member axis:
 ``fused_lap_dropout`` takes them only for tensors on the CPU. On a CUDA
@@ -46,20 +51,25 @@ from .philox import philox_words
 # Plain versions (the CPU path, and the yardstick of the kernels on the card)
 # ---------------------------------------------------------------------------
 
-def laplace_plain(seed, shape, device="cpu"):
+def laplace_plain(seed, shape, device="cpu", r0: int = 0):
     """The kernels' exact noise for ``seed`` over ``shape``: element n (its
     flat index) takes word n & 3 of Philox4x32-10 at counter n & ~3, keyed by
     the 64-bit seed, through :func:`laplace_from_bits`. A function of
     (seed, n) alone, whatever F, so the CPU path and the card draw the same
     noise. A sequence of M seeds (the sweep's members) gives M blocks of
-    shape[0] / M rows, block m the noise of seed m over its rows alone."""
+    shape[0] / M rows, block m the noise of seed m over its rows alone.
+    ``r0``: the rows are rows r0 .. of a larger draw (n counts from r0 F),
+    in each block."""
     if isinstance(seed, (list, tuple)):
         seeds = [int(s) for s in seed]
         rows = (shape[0] // len(seeds), *shape[1:])
-        return torch.cat([laplace_plain(s, rows, device) for s in seeds])
+        return torch.cat([laplace_plain(s, rows, device, r0) for s in seeds])
     numel = math.prod(shape)
-    counters = torch.arange(0, numel, 4, dtype=torch.int64, device=device)
-    return laplace_from_bits(philox_words(counters, seed).reshape(-1)[:numel]).reshape(shape)
+    start = r0 * math.prod(shape[1:])
+    lo = start & ~3
+    counters = torch.arange(lo, start + numel, 4, dtype=torch.int64, device=device)
+    words = philox_words(counters, seed).reshape(-1)[start - lo:start - lo + numel]
+    return laplace_from_bits(words).reshape(shape)
 
 
 def _each_member(fn, f, dp, epsilon, *rows):
@@ -130,10 +140,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     """The built library with the DP functions' argument types set."""
     lib = _build.library()[0]
-    # f, dp, seed, exp_eps vector, out, M, B, F, exp_eps, stream
-    lib.eeg_dp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
-    # f, g, dp, seed, exp_eps vector, df, ddp, M, B, F, exp_eps, stream
-    lib.eeg_dp_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    # f, dp, seed, exp_eps vector, out, M, B, F, exp_eps, r0, stream
+    lib.eeg_dp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]
+    # f, g, dp, seed, exp_eps vector, df, ddp, M, B, F, exp_eps, r0, stream
+    lib.eeg_dp_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]
     lib.eeg_dp_fwd.restype = lib.eeg_dp_bwd.restype = _I
     return lib
 
@@ -149,11 +159,13 @@ def _exp_eps(epsilon, dev):
     return None, math.exp(epsilon)
 
 
-def _check(f, dp, seed, epsilon, g=None):
+def _check(f, dp, seed, epsilon, g=None, r0=0):
     """Raise unless the kernels take these tensors; returns (device, M, B),
     M members of B rows each."""
     if not f.is_cuda:
         raise ValueError("the DP kernels take CUDA tensors")
+    if not isinstance(r0, int) or r0 < 0:
+        raise ValueError(f"r0={r0!r}: the first global row, a non-negative int")
     if f.dim() != 2 or min(f.shape) == 0:
         raise ValueError(f"feature_raw has shape {tuple(f.shape)}, expected non-empty (M B, F)")
     N, F = f.shape
@@ -203,27 +215,28 @@ class KernelWrapper:
         return out
 
 
-def _launch_fwd(f, dp, epsilon, seed):
+def _launch_fwd(f, dp, epsilon, seed, r0=0):
     """Launch ``dp_fwd_kernel`` on CUDA tensors: returns minmax(f) +
-    laplace_plain(seed) * eps_hat(sigmoid(dp), epsilon), per member for
-    (M, F) ``dp``, (M,) ``epsilon`` and (M,) ``seed``."""
-    dev, M, B = _check(f, dp, seed, epsilon)
+    laplace_plain(seed, r0=r0) * eps_hat(sigmoid(dp), epsilon), per member
+    for (M, F) ``dp``, (M,) ``epsilon`` and (M,) ``seed``."""
+    dev, M, B = _check(f, dp, seed, epsilon, r0=r0)
     exp_vec, exp_host = _exp_eps(epsilon, dev)
     out = torch.empty_like(f)
     err = _lib().eeg_dp_fwd(f.data_ptr(), dp.data_ptr(), seed.data_ptr(),
                             None if exp_vec is None else exp_vec.data_ptr(), out.data_ptr(),
-                            M, B, f.shape[1], exp_host, _build.current_stream(dev))
+                            M, B, f.shape[1], exp_host, r0, _build.current_stream(dev))
     _build.raise_on_error(err, "dp_fwd")
     return out
 
 
-def _launch_bwd(f, dp, epsilon, seed, g, need_df=True, need_ddp=True):
+def _launch_bwd(f, dp, epsilon, seed, g, need_df=True, need_ddp=True, r0=0):
     """Launch ``dp_bwd_kernel`` on CUDA tensors for the output gradient
     ``g``: returns (df or None, dDP or None), leaving out of the grid what is
-    not needed; dDP is (M, F), each member's over its own rows."""
+    not needed; dDP is (M, F), each member's over its own rows (rows r0 ..
+    of the global batch: a data shard's partial sum)."""
     if not (need_df or need_ddp):
         raise ValueError("nothing to compute: need_df and need_ddp are both False")
-    dev, M, B = _check(f, dp, seed, epsilon, g)
+    dev, M, B = _check(f, dp, seed, epsilon, g, r0=r0)
     exp_vec, exp_host = _exp_eps(epsilon, dev)
     df = torch.empty_like(f) if need_df else None
     ddp = torch.empty_like(dp) if need_ddp else None
@@ -231,7 +244,7 @@ def _launch_bwd(f, dp, epsilon, seed, g, need_df=True, need_ddp=True):
                             None if exp_vec is None else exp_vec.data_ptr(),
                             df.data_ptr() if need_df else None,
                             ddp.data_ptr() if need_ddp else None,
-                            M, B, f.shape[1], exp_host, _build.current_stream(dev))
+                            M, B, f.shape[1], exp_host, r0, _build.current_stream(dev))
     _build.raise_on_error(err, "dp_bwd")
     return df, ddp
 
@@ -247,15 +260,15 @@ KERNELS = (dp_fwd, dp_bwd)
 
 class _FusedLapDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feature_raw, dp_param, epsilon, seed, noise):
-        ctx.epsilon = epsilon
+    def forward(ctx, feature_raw, dp_param, epsilon, seed, noise, r0):
+        ctx.epsilon, ctx.r0 = epsilon, r0
         if feature_raw.is_cuda:
             if noise is not None:
                 raise ValueError("on the card the noise is drawn in the kernel")
-            out = dp_fwd(feature_raw, dp_param, epsilon, seed)
+            out = dp_fwd(feature_raw, dp_param, epsilon, seed, r0)
         else:
             drawn = noise if noise is not None else laplace_plain(seed.reshape(-1).tolist(),
-                                                                  feature_raw.shape)
+                                                                  feature_raw.shape, r0=r0)
             out = dp_block_plain(feature_raw, dp_param, epsilon, drawn)
         # the seed, not the noise: the backward regenerates it
         ctx.save_for_backward(feature_raw, dp_param, seed,
@@ -268,16 +281,17 @@ class _FusedLapDropout(torch.autograd.Function):
         need_df, need_ddp = ctx.needs_input_grad[:2]
         if f.is_cuda:
             df, ddp = dp_bwd(f, dp, ctx.epsilon, seed, g.contiguous(),
-                             need_df=need_df, need_ddp=need_ddp)
+                             need_df=need_df, need_ddp=need_ddp, r0=ctx.r0)
         else:
-            noise = given[0] if given else laplace_plain(seed.reshape(-1).tolist(), f.shape)
+            noise = given[0] if given else laplace_plain(seed.reshape(-1).tolist(), f.shape,
+                                                         r0=ctx.r0)
             df, ddp = dp_block_bwd_plain(f, dp, ctx.epsilon, noise, g)
             df = df if need_df else None
             ddp = ddp if need_ddp else None
-        return df, ddp, None, None, None
+        return df, ddp, None, None, None, None
 
 
-def fused_lap_dropout(feature_raw, dp_param, epsilon, seed, noise=None):
+def fused_lap_dropout(feature_raw, dp_param, epsilon, seed, noise=None, r0: int = 0):
     """min-max normalize + learned per-feature Laplace noise, one kernel each
     way on the card.
 
@@ -288,8 +302,9 @@ def fused_lap_dropout(feature_raw, dp_param, epsilon, seed, noise=None):
     sweep members: (M B, F) rows, (M, F) ``dp_param``, an (M,) float64
     ``epsilon`` and (M,) seeds on the device. ``noise`` (CPU only) replaces
     the seed's draw with a given Laplace(0, 1) array, so that tests can
-    hand the port the JAX reference's noise.
+    hand the port the JAX reference's noise. ``r0``: the rows are rows r0 ..
+    of the global batch (a data shard), and draw as those rows.
     """
     if not dp_ops.per_member(epsilon):
         epsilon = float(epsilon)
-    return _FusedLapDropout.apply(feature_raw, dp_param, epsilon, seed, noise)
+    return _FusedLapDropout.apply(feature_raw, dp_param, epsilon, seed, noise, int(r0))

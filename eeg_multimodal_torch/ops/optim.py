@@ -135,6 +135,12 @@ class Adam:
                 stacklevel=2,
             )
 
+    # Under a mesh (parallel/train.py): per leaf, the whole leaf's element
+    # count and the function that takes this rank's shard of the whole
+    # leaf's flat draw, so that a shard rounds with its slice of the bits
+    # the meshless run draws for the whole leaf.
+    shards = None
+
     def init(self, params: List[torch.Tensor]) -> AdamState:
         moments, packed = {}, {}
         for name, dtype in self.dtypes.items():
@@ -184,6 +190,13 @@ class Adam:
         share of it, each leaf's chunk of that draw serving the leaf's M
         member slices alike."""
         gen = self._sr_generator(count, flat.device)
+        if self.shards is not None:
+            sizes = [n for n, _ in self.shards]
+            rnd = torch.randint(0, 1 << 16, (sum(sizes),), generator=gen, dtype=torch.int32,
+                                device=flat.device)
+            rnd = torch.cat([take(c).reshape(-1) for (_, take), c in
+                             zip(self.shards, rnd.split(sizes))])
+            return stochastic_round_bits(flat, rnd)
         if self.members == 1:
             return stochastic_round_to_bf16(flat, gen)
         M = self.members

@@ -46,8 +46,8 @@ def build():
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{res.stderr}")
     handle = ctypes.CDLL(lib)
-    # f, dp, seed, exp_eps vector, out, M, B, F, exp_eps, stream
-    handle.eeg_dp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    # f, dp, seed, exp_eps vector, out, M, B, F, exp_eps, r0, stream
+    handle.eeg_dp_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]
     handle.probe_dp_fwd_row.argtypes = [_P, _P, _P, _P, _I, _I, _F, _P]
     handle.eeg_dp_fwd.restype = handle.probe_dp_fwd_row.restype = _I
     handle.probe_error_string.argtypes = [_I]
@@ -59,10 +59,12 @@ def launcher(lib, name, f, dp, seed, out):
     fn = getattr(lib, name)
     B, F = f.shape
     if name == "probe_dp_fwd_row":
-        args = (f.data_ptr(), dp.data_ptr(), seed.data_ptr(), out.data_ptr(), B, F)
-    else:  # one member, e^eps from the host
-        args = (f.data_ptr(), dp.data_ptr(), seed.data_ptr(), None, out.data_ptr(), 1, B, F)
-    args += (math.exp(EPS), _build.current_stream(f.device))
+        args = (f.data_ptr(), dp.data_ptr(), seed.data_ptr(), out.data_ptr(), B, F,
+                math.exp(EPS))
+    else:  # one member, e^eps from the host, rows from 0
+        args = (f.data_ptr(), dp.data_ptr(), seed.data_ptr(), None, out.data_ptr(), 1, B, F,
+                math.exp(EPS), 0)
+    args += (_build.current_stream(f.device),)
 
     def launch():
         err = fn(*args)

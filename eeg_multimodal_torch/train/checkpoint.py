@@ -23,6 +23,10 @@ so a checkpoint written by either package loads in the other, and in
 ``torch.load(weights_only=False)``. This module is the one place that knows
 the format.
 
+``save_pytree_dcp`` / ``load_pytree_dcp`` write and read a tree through
+``torch.distributed.checkpoint``, the port's counterpart of the JAX package's
+orbax backend (checkpoint.py:60-75 there), under a mesh the gathered tree once.
+
 Beside it, ``save_pytree`` / ``load_pytree`` (checkpoint.py:39-53 there)
 store any tree of dicts, lists and tuples whose leaves are tensors, numpy
 arrays or Python scalars: the MLM-pretrained encoder (``bert_mlm.pickle``)
@@ -31,8 +35,10 @@ own format, not the JAX package's (module docstring of ``save_pytree``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -99,6 +105,101 @@ def load_pytree(path: str, device=None):
         raise ValueError(f"{path} is not a file of save_pytree (the JAX package's "
                          "save_pytree writes another format)")
     return _decode(d["tree"], dev)
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed.checkpoint: the counterpart of the orbax backend
+# ---------------------------------------------------------------------------
+
+_DCP_LIST = "__list__"  # the key that marks an encoded list (or tuple)
+
+
+def _dcp_encode(tree):
+    """Lists and tuples as dicts keyed "0", "1", ... (DCP's flattening walks
+    dicts, and keeps a list of dicts whole as one pickled object)."""
+    if isinstance(tree, dict):
+        return {k: _dcp_encode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {_DCP_LIST: type(tree).__name__, **{str(i): _dcp_encode(v)
+                                                   for i, v in enumerate(tree)}}
+    return tree
+
+
+def _dcp_decode(tree):
+    if isinstance(tree, dict) and _DCP_LIST in tree:
+        items = [_dcp_decode(tree[str(i)]) for i in range(len(tree) - 1)]
+        return tuple(items) if tree[_DCP_LIST] == "tuple" else items
+    if isinstance(tree, dict):
+        return {k: _dcp_decode(v) for k, v in tree.items()}
+    return tree
+
+
+def save_pytree_dcp(path: str, tree, mesh=None) -> None:
+    """Write ``tree`` (dicts, lists, tuples; tensor and scalar leaves) as a
+    ``torch.distributed.checkpoint`` directory at ``path``. Works with no
+    process group. Under a ``mesh`` (``parallel/``) ``tree`` holds this
+    rank's Megatron shards: the whole tree is gathered (a collective: every
+    rank calls this) and rank (0, 0) writes it once; the ranks wait for it.
+
+    The counterpart of the JAX package's ``save_pytree_orbax`` /
+    ``load_pytree_orbax`` (train/checkpoint.py:60-75 there): orbax writes
+    ``jax.Array``s through JAX's own runtime and cannot be called by a
+    package that imports no JAX, so the port's step-indexed, shard-aware
+    backend is PyTorch's distributed checkpoint."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharding import gather_params
+
+        tree = gather_params(mesh, tree)
+        if mesh.is_lead:
+            with _single_process():
+                dcp.save(_dcp_encode(tree), checkpoint_id=os.path.abspath(path), no_dist=True)
+        dist.barrier(mesh.group)
+        return
+    with _single_process():
+        dcp.save(_dcp_encode(tree), checkpoint_id=os.path.abspath(path), no_dist=True)
+
+
+def load_pytree_dcp(path: str, like=None, device=None):
+    """The tree :func:`save_pytree_dcp` wrote. With ``like`` (a tree of the
+    same structure) the tensors are read into ``like``'s own, in place, and
+    ``like`` is returned; without it the whole tree is rebuilt from the
+    checkpoint's metadata, its tensors on ``device`` (the card unless
+    "cpu")."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.default_planner import _EmptyStateDictLoadPlanner
+    from torch.distributed.checkpoint.state_dict_loader import _load_state_dict
+
+    path = os.path.abspath(path)
+    if like is not None:
+        state = _dcp_encode(like)
+        with _single_process():
+            dcp.load(state, checkpoint_id=path, no_dist=True)
+        return _dcp_decode(state)
+    dev = resolve_device(device)
+    state = {}
+    # the metadata's planner rebuilds every entry (format_utils.dcp_to_torch_save's way)
+    with _single_process():
+        _load_state_dict(state, storage_reader=dcp.FileSystemReader(path),
+                         planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    return _dcp_decode(_to_device(state, dev))
+
+
+@contextlib.contextmanager
+def _single_process():
+    """Hide DCP's warning that it runs in a single process, which
+    ``no_dist=True`` asks for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
 # (tree path under a BERT layer, state-dict name under encoder.layer.N.)

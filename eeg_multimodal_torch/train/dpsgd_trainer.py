@@ -20,6 +20,11 @@ epoch's losses and accuracies stay on the device: the one host sync of an
 epoch reads its whole metric row after the eval. The eval is
 ``StepFunctions``'s, f32, one batched forward.
 
+Under a mesh (``parallel/train.py::shard_dpsgd_trainer``) each rank takes
+its rows of the window and its shards (``dp/dpsgd.py``), the train metrics'
+and the eval's logits are gathered over the data group, and rank (0, 0)
+writes the records and the best checkpoint, from the gathered tree.
+
 Seeds: as the JAX trainer calls ``set_seed()`` with the reference's seed
 (dpsgd_trainer.py:45 there), this one draws its init and every epoch's
 generator from ``DEFAULT_SEED``, whatever seed ``TrainAndTest`` was given.
@@ -35,6 +40,7 @@ from ..data.datasets import MultiModalArrays, epoch_indices, gather_batch
 from ..dp import dpsgd
 from ..models import fusion
 from ..ops.optim import Adam
+from ..parallel import sharding
 from ..utils.device import resolve_device
 from ..utils.seeding import DEFAULT_SEED, derive_seed, generator
 from . import checkpoint as ckpt
@@ -64,12 +70,20 @@ class DPSGDTrainer:
         # the eval is the standard one: f32, hard=True, one batched forward
         self.eval_steps = StepFunctions(fusion_cfg, TrainConfig(batch_size=dp_cfg.batch_size),
                                         self.device)
+        self.mesh = None  # set by parallel/train.py::shard_dpsgd_trainer
 
     def example_losses(self, params, batch, gen):
         """The per-example losses of a training forward (dropout on, from
-        ``gen``; the DP-SGD head adds no noise)."""
-        logits = fusion.apply(params, batch, self.fusion_cfg, 0.0, True, gen, True)
-        return M.cross_entropy(logits, batch["labels"])
+        ``gen``; the DP-SGD head adds no noise); under a mesh the rank's
+        rows'."""
+        if self.mesh is None:
+            logits = fusion.apply(params, batch, self.fusion_cfg, 0.0, True, gen, True)
+            return M.cross_entropy(logits, batch["labels"])
+        layout = sharding.Layout.of(self.mesh, batch["labels"].shape[0])
+        local = layout.local_rows(batch)
+        logits = fusion.apply(params, local, self.fusion_cfg, 0.0, True, gen, True,
+                              layout=layout)
+        return M.cross_entropy(logits, local["labels"])
 
     def train_epoch(self, params, opt_state, data, n: int, q: float, window: int, steps: int,
                     step, gen):
@@ -83,7 +97,7 @@ class DPSGDTrainer:
             batch = gather_batch(data, idx)
             opt_state = step(params, opt_state, batch, w, gen)
             with torch.no_grad():
-                logits = fusion.apply(params, batch, self.fusion_cfg, 0.0, True, None, False)
+                logits = self.eval_steps.forward(params, batch, 0.0, True, None, False)
             loss, acc, _, _ = M.cal_loss(logits, batch["labels"], w)
             losses.append(loss)
             accs.append(acc)
@@ -104,9 +118,10 @@ class DPSGDTrainer:
                   f"steps/epoch={steps_per_epoch} (target eps={cfg.target_epsilon})")
         window = dpsgd.window_size(n, q)
         step = dpsgd.make_dpsgd_step(self.example_losses, self.trainable, self.optimizer, sigma,
-                                     cfg.max_grad_norm, cfg.batch_size)
+                                     cfg.max_grad_norm, cfg.batch_size, self.mesh)
         opt_state = self.optimizer.init(dpsgd.trainable_leaves(self.params, self.trainable))
-        recorder = RunRecorder(log_path, echo=echo) if log_path else None
+        lead = self.mesh is None or self.mesh.is_lead  # under a mesh rank (0, 0) writes
+        recorder = RunRecorder(log_path, echo=echo) if log_path and lead else None
         train_dev = train_data.to_device(self.device)
         test_dev = test_data.to_device(self.device)
         eidx, ew = epoch_indices(len(test_data), cfg.batch_size, False, device=self.device)
@@ -135,7 +150,10 @@ class DPSGDTrainer:
                 f1_best = f1
                 best = row
                 if model_path:
-                    ckpt.save_torch_checkpoint(model_path, self.params, self.fusion_cfg)
+                    whole = (self.params if self.mesh is None
+                             else sharding.gather_params(self.mesh, self.params))
+                    if lead:
+                        ckpt.save_torch_checkpoint(model_path, whole, self.fusion_cfg)
                 if rec:
                     recorder.best_record(rec)
         return {"history": history, "best": best, "f1_best": f1_best,

@@ -187,7 +187,14 @@ class MetricTrainer(_LegacyTrainer):
                     results["DP_params"].append(self.params["DP"].detach().cpu().numpy())
                 if logger:
                     logger.info(info)
-                acc = float(np.mean(results["Accuracy"][-1])) if "Accuracy" in results else 0.0
+                if "Accuracy" not in results:
+                    # the JAX trainer's ``results.get("Accuracy", [[0.0]])[-1].mean()``
+                    # raises here, on a list (legacy.py:204 there): mirrored, with the cause
+                    raise AttributeError(
+                        f"MetricTrainer.fit keeps the best model by 'Accuracy', which metrics="
+                        f"{cfg.metrics!r} does not name ('list' object has no attribute "
+                        "'mean', as in the JAX package)")
+                acc = float(np.mean(results["Accuracy"][-1]))
                 if acc > best_acc:
                     best_acc = acc
                     ckpt.save_torch_checkpoint(os.path.join(base_path, "model.pth"),

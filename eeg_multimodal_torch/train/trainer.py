@@ -67,8 +67,10 @@ from ..data.compact_vocab import CompactVocab
 from ..data.datasets import MultiModalArrays, epoch_indices, gather_batch
 from ..models import fusion
 from ..ops.optim import Adam
+from ..parallel import sharding
 from ..utils.device import resolve_device
-from ..utils.seeding import DEFAULT_SEED, child_generator, derive_seed, generator
+from ..utils.seeding import (DEFAULT_SEED, child_generator, derive_seed, generator, get_state,
+                             set_state)
 from ..utils.trees import tree_cast, tree_items, tree_map, tree_map_with_path
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -183,9 +185,16 @@ class StepFunctions:
 
     ``lead`` is the leading shape of every per-model number (losses,
     accuracies, predictions): () here, (M,) for the sweep's stacked
-    members (``train/sweep.py::MemberSteps``)."""
+    members (``train/sweep.py::MemberSteps``).
+
+    ``mesh`` (set by ``parallel/train.py::shard_trainer``): the params are
+    this rank's Megatron shards, and each forward runs on the rank's rows of
+    the batch and gathers the logits of every row, so that the loss, the
+    metrics and F1 are the global batch's on every rank; each phase's
+    gradients are summed over the data group."""
 
     lead = ()
+    mesh = None
 
     def __init__(self, fusion_cfg: fusion.FusionConfig, train_cfg: TrainConfig,
                  device=None, members: int = 1):
@@ -230,15 +239,36 @@ class StepFunctions:
         return tree_cast({k: v for k, v in params.items() if k != "DP"}, self.compute_dtype)
 
     def forward(self, params, batch, epsilon, hard, gen, train, dp_noise=None):
-        """The logits of ``batch``'s rows (``fusion.apply``)."""
-        return fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen, train, dp_noise)
+        """The logits of ``batch``'s rows (``fusion.apply``); under a mesh of
+        every row, from each data rank's forward over its own."""
+        if self.mesh is None:
+            return fusion.apply(params, batch, self.fusion_cfg, epsilon, hard, gen, train,
+                                dp_noise)
+        layout = sharding.Layout.of(self.mesh, batch["labels"].shape[0])
+        logits = fusion.apply(params, layout.local_rows(batch), self.fusion_cfg, epsilon, hard,
+                              gen, train, None if dp_noise is None else layout.take(dp_noise),
+                              layout=layout)
+        return layout.gather_rows(logits)
 
-    def loss_fn(self, params, batch, weight, epsilon, gen, hard, train, dp_noise=None):
-        labels = batch["labels"]
-        logits = self.forward(params, batch, epsilon, hard, gen, train, dp_noise)
+    def sync_grads(self, grads):
+        """A phase's gradients summed over the data group, where each data
+        rank holds its rows' part (the list itself without a mesh)."""
+        return grads if self.mesh is None else sharding.all_reduce_data(grads, self.mesh)
+
+    def encode(self, params, batch, gen, train):
+        """The raw (B, F) concat of ``batch``'s rows (``fusion.encode_features``)."""
+        return fusion.encode_features(params, batch, self.fusion_cfg, gen, train)
+
+    def loss_of(self, logits, labels, weight):
+        """(loss, acc, pred, logits) of a forward's logits: each of ``lead``
+        models' weighted means over the batch (``metrics.cal_loss``)."""
         logits = logits.reshape(*self.lead, *labels.shape, -1)
         loss, acc, pred, _ = M.cal_loss(logits, labels.expand(*self.lead, *labels.shape), weight)
         return loss, acc, pred, logits
+
+    def loss_fn(self, params, batch, weight, epsilon, gen, hard, train, dp_noise=None):
+        logits = self.forward(params, batch, epsilon, hard, gen, train, dp_noise)
+        return self.loss_of(logits, batch["labels"], weight)
 
     def objective(self, loss):
         """The scalar a phase differentiates: the loss itself here."""
@@ -254,6 +284,11 @@ class StepFunctions:
         if self.paired:
             return gen, child_generator(gen, "phase 2")
         return gen, gen
+
+    def pair_generators(self, g1, g2):
+        """The group the paired step's 2B forward draws from: the batch
+        stacked twice, its halves drawing from (g1, g2)."""
+        return g1, g2
 
     def train_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
                    dp_noise=(None, None), dropout=True, params_c=None):
@@ -287,7 +322,7 @@ class StepFunctions:
             return self._paired_phase_step(params, dp_os, model_os, batch, weight, epsilon,
                                            g1, g2, dp_noise, dropout)
         cd = self.compute_dtype
-        replay = g1.get_state() if self.train_cfg.share_phase_dropout else None
+        replay = get_state(g1) if self.train_cfg.share_phase_dropout else None
 
         def with_dp(dp):  # the precast copy with the given DP leaf, in params' order
             return {k: (dp if k == "DP" else params_c[k]) for k in params}
@@ -302,12 +337,12 @@ class StepFunctions:
             p1 = with_dp(dp_alias.to(cd))
         loss1 = self.loss_fn(p1, batch, weight, epsilon, g1, hard=False,
                              train=dropout, dp_noise=dp_noise[0])[0]
-        g_dp = torch.autograd.grad(self.objective(loss1), [dp_alias])
-        dp_os = self.dp_opt.update(dp_leaves, list(g_dp), dp_os)
+        g_dp = self.sync_grads(list(torch.autograd.grad(self.objective(loss1), [dp_alias])))
+        dp_os = self.dp_opt.update(dp_leaves, g_dp, dp_os)
 
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
         if replay is not None:
-            g2.set_state(replay)
+            set_state(g2, replay)
         return (dp_os, *self._model_phase(params, model_os, batch, weight, epsilon, g2,
                                           dp_noise[1], dropout, params_c))
 
@@ -327,7 +362,8 @@ class StepFunctions:
             model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
         loss, acc, _, _ = self.loss_fn(p, batch, weight, epsilon, gen, hard=True, train=dropout,
                                        dp_noise=noise)
-        grads = [g.float() for g in torch.autograd.grad(self.objective(loss), aliases)]
+        grads = self.sync_grads([g.float() for g in torch.autograd.grad(self.objective(loss),
+                                                                         aliases)])
         model_os = self.model_opt.update(model_leaves, grads, model_os)
         if params_c is not None:
             torch._foreach_copy_(copies, model_leaves)
@@ -348,7 +384,7 @@ class StepFunctions:
         params = {**pc, "DP": dp.to(self.compute_dtype)}
         logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen,
                                    train=True, dp_noise=noise)
-        return M.cal_loss(logits, batch["labels"], weight)[:2]
+        return self.loss_of(logits, batch["labels"], weight)[:2]
 
     def _two_phases(self, params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
                     weight, epsilon, g1, g2, dp_noise, replay=None):
@@ -359,13 +395,13 @@ class StepFunctions:
         dp_alias = params["DP"].detach().requires_grad_()
         loss1 = self._head_loss(pc, dp_alias, f1.detach(), batch, weight, epsilon, False, g1,
                                 dp_noise[0])[0]
-        dp_os = self.dp_opt.update([params["DP"]], list(torch.autograd.grad(loss1, [dp_alias])),
-                                   dp_os)
+        dp_os = self.dp_opt.update(
+            [params["DP"]], list(torch.autograd.grad(self.objective(loss1), [dp_alias])), dp_os)
         if replay is not None:
-            g2.set_state(replay)
+            set_state(g2, replay)
         loss, acc = self._head_loss(pc, params["DP"].detach(), f2, batch, weight, epsilon, True,
                                     g2, dp_noise[1])
-        grads = [g.float() for g in torch.autograd.grad(loss, aliases)]
+        grads = [g.float() for g in torch.autograd.grad(self.objective(loss), aliases)]
         model_os = self.model_opt.update(masters, grads, model_os)
         return dp_os, model_os, loss.detach(), acc.detach()
 
@@ -377,10 +413,10 @@ class StepFunctions:
         the one forward. The generator's state after the encoder is restored
         before phase 2, so its head draws phase 1's DP noise again."""
         pc, aliases, masters = self._model_tree(params)
-        feature = fusion.encode_features(pc, batch, self.fusion_cfg, gen, dropout)
+        feature = self.encode(pc, batch, gen, dropout)
         return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feature,
                                 feature, batch, weight, epsilon, gen, gen, dp_noise,
-                                replay=gen.get_state())
+                                replay=get_state(gen))
 
     def _paired_phase_step(self, params, dp_os, model_os, batch, weight, epsilon, g1, g2,
                            dp_noise, dropout):
@@ -389,15 +425,18 @@ class StepFunctions:
         (g1, g2) as two sequential forwards would: the encoder never reads
         ``DP``, and phase 1 updates only ``DP``. Phase 1 takes ``dDP`` on
         half 0, phase 2 backs up through half 1 (a zero cotangent on half 0,
-        the slice's gradient)."""
+        the slice's gradient). Over stacked members each member's rows are
+        its own pair (:meth:`pair_generators`)."""
         if self.train_cfg.share_phase_dropout:
-            g2.set_state(g1.get_state())
+            set_state(g2, get_state(g1))
         pc, aliases, masters = self._model_tree(params)
         B = weight.shape[0]
         pair = {k: torch.cat([v, v]) for k, v in batch.items() if k != "labels"}
-        feats = fusion.encode_features(pc, pair, self.fusion_cfg, (g1, g2), dropout)
-        return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feats[:B],
-                                feats[B:], batch, weight, epsilon, g1, g2, dp_noise)
+        feats = self.encode(pc, pair, self.pair_generators(g1, g2), dropout)
+        feats = feats.reshape(-1, 2, B, feats.shape[-1])  # (models, phase, B, F)
+        f1, f2 = (feats[:, i].reshape(-1, feats.shape[-1]) for i in range(2))
+        return self._two_phases(params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
+                                weight, epsilon, g1, g2, dp_noise)
 
     # -- epochs -----------------------------------------------------------------
     def train_epoch(self, params, dp_os, model_os, data, idx, weight, epsilon, gen):
@@ -521,6 +560,7 @@ class Trainer:
         self.params = params
         self.steps = StepFunctions(fusion_cfg, train_cfg, self.device)
         self.dp_os, self.model_os = self.steps.init_opt_states(params)
+        self.mesh = None  # set by parallel/train.py::shard_trainer
 
     def export_params(self, params=None):
         """Params for checkpoint export: ``params`` (by default the live
@@ -598,7 +638,9 @@ class Trainer:
         exit and on SIGTERM, so a run that stops keeps its best.
         """
         cfg = self.train_cfg
-        recorder = RunRecorder(log_path, echo=echo) if log_path else None
+        mesh = self.mesh
+        lead = mesh is None or mesh.is_lead  # under a mesh rank (0, 0) writes the files
+        recorder = RunRecorder(log_path, echo=echo) if log_path and lead else None
         train_dev = train_data.to_device(self.device)
         test_dev = test_data.to_device(self.device)
         n_train, n_test = len(train_data), len(test_data)
@@ -607,8 +649,18 @@ class Trainer:
         history = []
         pending = {"params": None}  # a best not yet on disk
 
+        def best_copy():
+            """The params to write as the best: a device copy, or under a
+            mesh the whole tree gathered (a collective, at the same epoch on
+            every rank)."""
+            if mesh is None:
+                return tree_map(torch.clone, self.params)
+            return sharding.gather_params(mesh, self.params)
+
         def write_best(params):
-            ckpt.save_torch_checkpoint(model_path, self.export_params(params), self.fusion_cfg)
+            if lead:
+                ckpt.save_torch_checkpoint(model_path, self.export_params(params),
+                                           self.fusion_cfg)
 
         def flush_pending(*_args):
             p, pending["params"] = pending["params"], None
@@ -649,9 +701,9 @@ class Trainer:
                     best_record = row
                     if model_path:
                         if cfg.defer_best_checkpoint:
-                            pending["params"] = tree_map(torch.clone, self.params)
+                            pending["params"] = best_copy()
                         else:
-                            write_best(self.params)
+                            write_best(best_copy() if mesh is not None else self.params)
                     if rec:
                         recorder.best_record(rec)
                 if (pending["params"] is not None and cfg.defer_flush_epochs

@@ -52,6 +52,22 @@ def grouped(draw, shape, gen):
     return torch.cat([draw((rows, *shape[1:]), g) for g in gen])
 
 
+def get_state(gen):
+    """The state of a generator, or of each generator of a group (a list)."""
+    if isinstance(gen, torch.Generator):
+        return gen.get_state()
+    return [g.get_state() for g in gen]
+
+
+def set_state(gen, state):
+    """Set the state :func:`get_state` read, into one generator or a group."""
+    if isinstance(gen, torch.Generator):
+        gen.set_state(state)
+        return
+    for g, st in zip(gen, state):
+        g.set_state(st)
+
+
 def child_generator(gen: torch.Generator, *names) -> torch.Generator:
     """A generator on ``gen``'s device, seeded from ``gen``'s current state
     and a path of names; ``gen`` does not move. The state is read on the

@@ -60,7 +60,10 @@ def test_importing_every_port_module_loads_no_jax():
             "eeg_multimodal_torch.train.contrastive", "eeg_multimodal_torch.train.distill",
             "eeg_multimodal_torch.train.pipeline", "eeg_multimodal_torch.train.checkpoint",
             "eeg_multimodal_torch.train.trainer", "eeg_multimodal_torch.ops.optim",
-            "eeg_multimodal_torch.utils.profiling"} <= set(mods)
+            "eeg_multimodal_torch.utils.profiling", "eeg_multimodal_torch.parallel.mesh",
+            "eeg_multimodal_torch.parallel.sharding", "eeg_multimodal_torch.parallel.train",
+            "eeg_multimodal_torch.visualization.plot",
+            "eeg_multimodal_torch.visualization.plot_new"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -70,6 +73,53 @@ def test_importing_every_port_module_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_parallel_imports_no_jax():
+    """The mesh, the sharding rules and the meshed trainers import nothing
+    of JAX (the JAX package's parallel/ is jax.sharding through and
+    through)."""
+    code = (
+        "import sys\n"
+        "import eeg_multimodal_torch.parallel.mesh, eeg_multimodal_torch.parallel.sharding\n"
+        "import eeg_multimodal_torch.parallel.train\n"
+        "from eeg_multimodal_torch.parallel.mesh import make_mesh\n"
+        "assert make_mesh().shape == {'data': 1, 'model': 1}\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_visualization_loads_no_matplotlib(tmp_path):
+    """matplotlib is imported inside the figure functions only: importing
+    both modules loads none, and the record readers run where it cannot be
+    imported at all (the card machine has none)."""
+    rec = tmp_path / "run"
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import eeg_multimodal_torch.visualization.plot as P\n"
+        "import eeg_multimodal_torch.visualization.plot_new as PN\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "sys.modules['matplotlib'] = None  # any import of it now raises\n"
+        "from eeg_multimodal_torch.train.records import RunRecorder\n"
+        f"r = RunRecorder({str(rec) + '/'!r}, echo=False)\n"
+        "r.epoch(0, 0.7, 0.5, 0.6, 0.55, 0.5, 1.0)\n"
+        f"rows = P.load_run({str(rec)!r})\n"
+        "assert P.best_row(rows)['f1'] == 0.5\n"
+        "assert P.dp_param_stats(np.zeros((1, 4)), 1.0)['w'].shape == (4,)\n"
+        "try:\n"
+        "    P.plot_training_curves({'a': rows}, 'x.png')\n"
+        "except ImportError:\n"
+        "    print('figures need matplotlib')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "figures need matplotlib"
 
 
 def test_the_command_line_loads_no_jax(tmp_path):

@@ -214,14 +214,22 @@ def test_extract_feawei_matches_jax(tmp_path):
 def test_metric_trainer_fit_writes_results(tmp_path, metrics):
     """fit with n_para = 2, n_eval = 3: results.pkl with the JAX keys and
     shapes (predictions sample-major), the logs, and the best-Accuracy
-    model.pth in the reference's state-dict layout; without "Accuracy" in
-    ``metrics`` no best (the JAX package raises there, ROADMAP §3)."""
+    model.pth in the reference's state-dict layout. Without "Accuracy" in
+    ``metrics`` the JAX trainer raises AttributeError after the first eval
+    epoch's log line (legacy.py:204 there), and so does the port, with the
+    logs written and no results.pkl or model.pth yet."""
     _, tc = configs()
     names = metrics.split(",")
     cfg = TL.MetricTrainConfig(n_para=2, n_eval=3, n_epochs=1, batch_size=B, metrics=metrics,
                                learning_rate=1e-3)
     tr = TL.MetricTrainer(tc, cfg, device="cpu")
     train, val = arrays(8, 5), arrays(6, 6)
+    if "Accuracy" not in names:
+        with pytest.raises(AttributeError, match="'Accuracy'"):
+            tr.fit(train, val, base_path=str(tmp_path), echo=True)
+        assert sorted(os.listdir(tmp_path)) == ["debug.log", "info.log"]
+        assert "Eval  Epoch:   0 | F1Score:" in (tmp_path / "info.log").read_text()
+        return
     out = tr.fit(train, val, base_path=str(tmp_path), echo=True)
     with open(tmp_path / "results.pkl", "rb") as f:
         res = pickle.load(f)

@@ -11,12 +11,15 @@ unbroken two-epoch fit bit for bit (the params, both optimizer states, the
 second epoch's row); ``ResumableTrainer`` resumes from its state file and
 reports a finished run; ``pretrain_finetune`` equals its two
 ``Trainer.fit`` calls, and with ``load_stat`` the finetune from that state
-dict. The model: the flagship class with a 1-layer BERT of width 768 (the
+dict; ``save_pytree_dcp`` / ``load_pytree_dcp`` (the orbax backend's
+counterpart) give back every leaf bit for bit, into a ``like`` tree and from
+the checkpoint's metadata alone. The model: the flagship class with a 1-layer BERT of width 768 (the
 fusion head's width), S = 8.
 """
 import dataclasses
 import os
 import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -94,6 +97,65 @@ def test_pytree_round_trip_keeps_every_leaf(tmp_path):
         with open(bad, "wb") as f:
             pickle.dump({"leaves": [], "treedef": None}, f)  # the JAX package's layout
         TC.load_pytree(bad, "cpu")
+
+
+def test_save_pytree_dcp_round_trip(tmp_path):
+    """The counterpart of tests/test_pipeline.py:104 (orbax): a tree of
+    dicts, lists and tuples, f32, bf16 and int64 tensors and a scalar
+    count, read back bit for bit into a ``like`` tree and from the
+    metadata alone, with no process group."""
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(2, 3, generator=gen),
+            "b": {"c": torch.ones(4), "layers": [{"k": torch.randn(3, generator=gen)},
+                                                  {"k": torch.arange(3)}]},
+            "moment": torch.randn(5, generator=gen).to(torch.bfloat16), "count": 7,
+            "pair": (torch.zeros(1), torch.ones(2))}
+    path = str(tmp_path / "dcp_ckpt")
+    TC.save_pytree_dcp(path, tree)
+    like = {"a": torch.zeros(2, 3), "b": {"c": torch.zeros(4), "layers": [
+        {"k": torch.zeros(3)}, {"k": torch.zeros(3, dtype=torch.int64)}]},
+        "moment": torch.zeros(5, dtype=torch.bfloat16), "count": 0,
+        "pair": (torch.ones(1), torch.zeros(2))}
+    for out in (TC.load_pytree_dcp(path, like=like), TC.load_pytree_dcp(path, device="cpu")):
+        assert out["count"] == 7 and isinstance(out["pair"], tuple)
+        got = dict(tree_items(out))
+        assert sorted(got) == sorted(p for p, _ in tree_items(tree))
+        for path, x in tree_items(tree):
+            if torch.is_tensor(x):
+                assert x.dtype == got[path].dtype, path
+                np.testing.assert_array_equal(x.float().numpy(), got[path].float().numpy())
+    assert torch.equal(like["a"], tree["a"])  # read in place
+
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_dcp_restores_a_trainer_state_bit_for_bit(tmp_path, moments):
+    """A trained flagship's params and both Adam states (a packed bf16
+    moment as its flat buffer) through ``save_pytree_dcp``, read into a
+    fresh trainer's trees (``like``): every leaf and count bit for bit, the
+    packed moments' views reading the loaded buffers."""
+    cfg = TrainConfig(batch_size=4, learning_rate=1e-3, epochs=1, adam_mu_dtype=moments,
+                      adam_nu_dtype=moments)
+    a = Trainer(CFG, cfg, device="cpu")
+    a.fit(arrays(8, 1), arrays(4, 2), EPS, echo=False)
+    state = {"params": a.params, "dp_os": a.dp_os.to_tree(), "model_os": a.model_os.to_tree()}
+    path = str(tmp_path / "state")
+    TC.save_pytree_dcp(path, state)
+    b = Trainer(CFG, cfg, device="cpu")
+    like = {"params": b.params, "dp_os": b.dp_os.to_tree(), "model_os": b.model_os.to_tree()}
+    back = TC.load_pytree_dcp(path, like=like)
+    for (p, x), (q, y) in zip(tree_items(state), tree_items(back)):
+        assert p == q
+        if torch.is_tensor(x):
+            assert x.dtype == y.dtype and torch.equal(x, y), p
+        else:
+            assert x == y, p
+    model_os = AdamState.from_tree(back["model_os"], [t for path, t in tree_items(b.params)
+                                                      if path != "DP"])
+    for m, n in zip(model_os.nu, a.model_os.nu):
+        assert torch.equal(m, n)
+    assert model_os.count == a.model_os.count == 2
+    shutil.rmtree(path)  # a few hundred MB: the suite keeps its tmp dirs
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])

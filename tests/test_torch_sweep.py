@@ -28,14 +28,14 @@ from eeg_multimodal_tpu.models import bert as JB
 from eeg_multimodal_tpu.models import fusion as JF
 from eeg_multimodal_tpu.train import metrics as JM
 from eeg_multimodal_tpu.train import sweep as JS
-from eeg_multimodal_torch.data.datasets import MultiModalArrays
+from eeg_multimodal_torch.data.datasets import MultiModalArrays, epoch_indices
 from eeg_multimodal_torch.models import bert as TB
 from eeg_multimodal_torch.models import fusion as TF
 from eeg_multimodal_torch.models import layers as TL
 from eeg_multimodal_torch.ops import dp_fused as K
 from eeg_multimodal_torch.train.sweep import (MemberSteps, SweepMember, SweepRunner,
                                               privacy_utility_frontier)
-from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer
+from eeg_multimodal_torch.train.trainer import TrainConfig, Trainer, epoch_generator
 from eeg_multimodal_torch.utils.trees import tree_items, tree_map
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -216,6 +216,57 @@ def test_sweep_equals_each_members_fit(case):
         dp in ("NDP", "DPSGD")
 
 
+# the three fast modes over stacked members, each with f32 and bf16 Adam
+# moments; the reuse step with the fused DP block
+FAST_CASES = [
+    ("share", {"share_phase_dropout": True, "reuse_phase_features": False}),
+    ("reuse", {"share_phase_dropout": True}),
+    ("paired", {"paired_phase_encode": True}),
+]
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", FAST_CASES, ids=[c[0] for c in FAST_CASES])
+def test_sweep_fast_modes_equal_each_members_fit(mode, moments):
+    """Every fast mode under the sweep: phase 2 replays each member's draws
+    (share), each member's post-encoder state is restored for its head
+    (reuse), each member's pair draws from its generator and its phase-2
+    child (paired). Members with their own seeds; each member's rows equal
+    its own ``Trainer.fit`` with that mode and seed, within 1e-5, over two
+    epochs of two steps."""
+    name, fast = mode
+    _, tc = configs(fused_dp_kernel=name == "reuse")
+    members = [SweepMember(0.1, seed=11), SweepMember(5.0, seed=12)]
+    cfg = TrainConfig(batch_size=B, learning_rate=1e-3, epochs=2, adam_mu_dtype=moments,
+                      adam_nu_dtype=moments, seed=members[0].seed, **fast)
+    train, test = arrays(8, 1), arrays(4, 2)
+    res = SweepRunner(tc, cfg, members, device="cpu").run(train, test, echo=False)
+    for m, r in zip(members, res):
+        out = member_fit(tc, cfg, m, train, test)
+        np.testing.assert_allclose(history(r["history"]), history(out["history"]),
+                                   err_msg=f"member {m.name}", **ROW_TOL)
+    assert not np.allclose(history(res[0]["history"]), history(res[1]["history"]))
+
+
+def member_fit(tc, cfg, member, train, test):
+    """``Trainer.fit`` of one member as the sweep trains it: its init and
+    its draws from its own seed, the epoch shuffle and the bf16 moment's
+    rounding bits from the sweep's seed ``cfg.seed`` (members[0]'s), as
+    under the JAX sweep's ``vmap``."""
+    tr = Trainer(tc, dataclasses.replace(cfg, seed=member.seed), device="cpu")
+    tr.steps.model_opt.sr_seed = cfg.seed
+    own = tr.epoch_inputs
+
+    def epoch_inputs(epoch, n_train, n_test):
+        _, _, tgen, eidx, ew, egen = own(epoch, n_train, n_test)
+        idx, w = epoch_indices(n_train, cfg.batch_size, True,
+                               epoch_generator(cfg.seed, epoch, "shuffle"), "cpu")
+        return idx, w, tgen, eidx, ew, egen
+
+    tr.epoch_inputs = epoch_inputs
+    return tr.fit(train, test, member.epsilon, echo=False)
+
+
 def test_sweep_records_chunks_and_injected_bert(tmp_path, capsys):
     """Records under <log_root>/eps0.1_seed980616/ with the epsilon and seed
     in metrics.jsonl and a best record; one chunk of 3 equals three chunks
@@ -263,12 +314,15 @@ def test_frontier_and_refusals():
     if not torch.cuda.is_available():  # the card by default, never a quiet CPU run
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SweepRunner(tc, TrainConfig(), privacy_utility_frontier())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         SweepRunner(tc, TrainConfig(), privacy_utility_frontier(), mesh=object(), device="cpu")
+    # the fast modes run (test_sweep_fast_modes_equal_each_members_fit); the
+    # configuration's own refusals stand, as JAX's (trainer.py:166-175, :240-244 there)
+    with pytest.raises(ValueError, match="requires share_phase_dropout"):
+        TrainConfig(reuse_phase_features=True)
     for mode in ("share_phase_dropout", "paired_phase_encode"):
-        with pytest.raises(ValueError, match="item 17"):
-            SweepRunner(tc, TrainConfig(**{mode: True}), privacy_utility_frontier(),
-                        device="cpu")
+        with pytest.raises(ValueError, match="keep the in-step cast"):
+            TrainConfig(**{mode: True}, compute_dtype="bfloat16", precast_params=True)
     with pytest.raises(ValueError, match="pri_gumbel"):  # fusion.apply refuses it
         SweepRunner(configs(dp="pri_gumbel")[1], TrainConfig(), privacy_utility_frontier(),
                     device="cpu")
