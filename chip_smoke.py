@@ -113,6 +113,16 @@ stochastic rounding on the card. Then drives the main paths at full width
    ported example and ``tools.validate_bf16_moments`` at its smallest
    epoch count, in order, each held to the file it writes and to
    launching the attention kernels;
+12. the JAX system's remaining entry points through their ports' ``main``s:
+   the fused-DP NaN repro at 1200 steps (every variant PASS, the DP
+   kernels' launches as counted), ``import_hf_bert`` on a synthetic
+   BERT-base state dict as ``.bin`` and as ``.safetensors`` (the trees equal
+   bit for bit, the imported BERT card against CPU), ``recover_vocab`` on a
+   seeded mini-reference (every row byte-exact), the graft entry's check (4
+   bf16 attention launches) and its full-size dry run on two ranks over gloo
+   (mesh against single-rank parity), ``r5_modal_seeds`` at one epoch on
+   path 11's tree and run directory, ``scripts.data`` on path 11's raw rows
+   and ``r5_accuracy``'s tree phase on the mini-reference;
 2. the untruncated 512-token f32 trainer through
    ``TrainAndTest.train_on(auto_truncate=False)`` and ``Trainer.fit``, two
    epochs, where every BERT self-attention runs the attention kernels;
@@ -3059,6 +3069,54 @@ def write_user_tree(root, rows=EXAMPLE_RAW_ROWS, device=None):
     return root
 
 
+def numeric_vocab(WordPiece):
+    """A BERT-like numeric vocab: the specials at BERT's ids, '-', the whole
+    numbers below 100 and every seventh below 1000, '##' continuations of
+    one and two digits."""
+    vocab = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "-": 1000}
+    words = [str(n) for n in range(100)] + [str(n) for n in range(0, 1000, 7)]
+    words += ["##" + d for d in "0123456789"]
+    words += ["##" + a + b for a in "0123456789" for b in "0123456789"]
+    for w in words:
+        vocab.setdefault(w, 1000 + len(vocab) - 4)
+    return WordPiece(vocab)
+
+
+def write_mini_reference(root, n_rows=120, raw_rows=EXAMPLE_RAW_ROWS, seed=15):
+    """A seeded stand-in for the reference's files that the vocab recovery
+    and r5_accuracy's tree phase read, under ``root``: ``feature/test_EEG.csv``
+    (``n_rows`` texts of 30 integers in [-300, 300), the EEG channels of
+    :func:`write_raw_tasks`, and 0/1 labels) with
+    ``feature/EEG/test_bert.pickle``, each text's ids as :func:`numeric_vocab`
+    encodes it (a row of 512 ids and its mask: ids consistent with the
+    texts, as HF's are with the committed rows), ``feature/action/
+    test_clip_v2.pickle`` ((n_rows, 512) f32) and ``python/data/processed``
+    (``process`` over ``raw_rows`` raw rows). Made with numpy; returns
+    ``root``."""
+    from eeg_multimodal_torch.data import process
+    from eeg_multimodal_torch.data.tokenizer import WordPiece
+
+    tok = numeric_vocab(WordPiece)
+    rng = np.random.RandomState(seed)
+    texts = [" ".join(str(v) for v in rng.randint(-300, 300, 30)) for _ in range(n_rows)]
+    items = []
+    for text in texts:
+        ids, mask = tok.encode(text)
+        items.append({"input_ids": ids.astype(np.int64), "attention_mask": mask.astype(np.int64)})
+    for sub in ("EEG", "action"):
+        os.makedirs(os.path.join(root, "feature", sub), exist_ok=True)
+    with open(os.path.join(root, "feature", "test_EEG.csv"), "w") as f:
+        f.write("EEG,label\n")
+        f.writelines(f"{t},{lab}\n" for t, lab in zip(texts, rng.randint(0, 2, n_rows)))
+    with open(os.path.join(root, "feature", "EEG", "test_bert.pickle"), "wb") as f:
+        pickle.dump(items, f)
+    with open(os.path.join(root, "feature", "action", "test_clip_v2.pickle"), "wb") as f:
+        pickle.dump(rng.randn(n_rows, 512).astype(np.float32), f)
+    process.process(write_raw_tasks(root, raw_rows, seed),
+                    os.path.join(root, "python", "data", "processed"))
+    return root
+
+
 def example_runs(tree, run_dir, out):
     """(module under ``eeg_multimodal_torch``, argv, the file it writes) of
     every ported example, in the order of the port, each at its smallest
@@ -3111,7 +3169,9 @@ def run_examples(torch, all_kernels):
     then every ported example through its ``main`` at its smallest epoch
     count, in order (``pretrain_finetune`` writing the run directory the
     others read), each held to its file written and to launching the
-    attention kernels."""
+    attention kernels. Returns the directory holding the tree (``tree``,
+    its raw rows under ``tree/raw``) and the run directory (``run``), for
+    path 12, which removes it."""
     import importlib
 
     phase(f"main path 11: the examples, from a tree of {sum(EXAMPLE_RAW_ROWS)} raw rows "
@@ -3132,7 +3192,268 @@ def run_examples(torch, all_kernels):
         check(result is not None, f"{name} returned nothing")
         check(written is None or os.path.exists(written), f"{name} did not write {written}")
         check("attn_fwd" in got, f"{name} did not run the attention kernels")
-    shutil.rmtree(root)
+    shutil.rmtree(os.path.join(root, "out"))
+    return root
+
+
+# Main path 12's launch counts, worked out from the code before its first
+# run on the card (PERF.md's prediction): the NaN repro's fused variants launch
+# each DP kernel once per instance a step (phase 1 dDP only, phase 2 df
+# only: one dp_bwd each), the composed one none.
+REPRO_STEPS = 1200
+REPRO_INSTANCES = {"dual-scan": 2, "single-scan": 1, "dual-python": 2, "dual-scan-barrier": 2,
+                   "dual-scan-jaxnoise": 0}
+DRYRUN_SPAWN_S = MESH_SPAWN_S  # path 10's limit on a spawned run
+
+
+def write_safetensors(path, tensors):
+    """``tensors`` (name -> contiguous f32 CPU tensor) as a ``.safetensors``
+    file: an 8-byte little-endian header length, the JSON header (dtype,
+    shape, [begin, end) offsets; ``__metadata__``), padded with spaces to a
+    multiple of 8, then each tensor's little-endian bytes. Written here by
+    hand: the card's machine has no ``safetensors`` package."""
+    import struct
+
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        blob = t.contiguous().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for blob in blobs:
+            f.write(blob)
+
+
+def bert_base_state_dict(torch, bert_mod, seed):
+    """A synthetic HF ``BertModel`` state dict at BERT-base's shapes (f32
+    CPU tensors, torch layout): the port's init from ``seed`` through
+    ``train/checkpoint.py::bert_to_torch_state_dict``."""
+    from eeg_multimodal_torch.train.checkpoint import bert_to_torch_state_dict
+
+    params = bert_mod.init(torch.Generator().manual_seed(seed), bert_mod.BertConfig(), "cpu")
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in bert_to_torch_state_dict(params).items()}
+
+
+def run_remaining_entry_points(torch, all_kernels, layers, examples_root):
+    """Main path 12, the JAX system's remaining entry points through their
+    ports' ``main``s: the fused-DP NaN repro at 1200 steps (every variant
+    PASS, the DP kernels' launches as counted); ``import_hf_bert`` on a
+    synthetic BERT-base state dict as ``.bin`` and ``.safetensors`` (the
+    trees bit for bit equal, the imported BERT card against CPU);
+    ``recover_vocab`` on a seeded mini-reference (every row byte-exact); the
+    graft entry's check (4 bf16 ``attn_fwd``) and its dry run at full size
+    on two ranks over gloo (parity asserted by rank 0; launches per stage);
+    ``r5_modal_seeds`` at one epoch on path 11's tree and run directory;
+    ``scripts.data`` on path 11's raw rows; ``r5_accuracy``'s tree phase on
+    the mini-reference. Removes ``examples_root``."""
+    import contextlib
+    import glob
+    import io
+
+    from eeg_multimodal_torch import graft_entry
+    from eeg_multimodal_torch.models import bert as bert_mod
+    from eeg_multimodal_torch.scripts import data as data_script
+    from eeg_multimodal_torch.tools import (import_hf_bert, r5_accuracy, r5_modal_seeds,
+                                            recover_vocab)
+    from eeg_multimodal_torch.tools import repro_fused_dp_scan_nan as repro
+    from eeg_multimodal_torch.train.checkpoint import load_pytree
+    from eeg_multimodal_torch.utils.trees import tree_items
+
+    def reset():
+        for k in all_kernels:
+            k.reset()
+
+    def by_dtype():
+        return {k.name: dict(k.by_dtype) for k in all_kernels if k.launches}
+
+    def embedding_files(root):
+        base = os.path.join(root, "data", "embedding")
+        return sorted(os.path.relpath(os.path.join(d, f), base)
+                      for d, _, files in os.walk(base) for f in files)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry12_")
+    saved = {k: os.environ.get(k) for k in ("REPRO_STEPS", "REFERENCE_DIR")}
+    cwd = os.getcwd()
+    try:
+        os.environ["REPRO_STEPS"] = str(REPRO_STEPS)
+        for variant, n in REPRO_INSTANCES.items():
+            phase(f"main path 12: python -m eeg_multimodal_torch.tools.repro_fused_dp_scan_nan "
+                  f"{variant} (REPRO_STEPS={REPRO_STEPS}, (8, 2304))")
+            reset()
+            t0 = time.perf_counter()
+            result = repro.main([variant])
+            wall = time.perf_counter() - t0
+            check(result == {variant: True}, f"the repro's {variant}: {result}")
+            want = {} if n == 0 else {"dp_fwd": {"float32": n * REPRO_STEPS},
+                                      "dp_bwd": {"float32": n * REPRO_STEPS}}
+            check_launches(by_dtype(), want, f"repro {variant}")
+            print(f"  {wall:.2f} s, {wall / REPRO_STEPS * 1e3:.3f} ms a step")
+
+        phase("main path 12: python -m eeg_multimodal_torch.tools.import_hf_bert on a synthetic "
+              "BERT-base state dict, as pytorch_model.bin and as model.safetensors")
+        t0 = time.perf_counter()
+        sd = bert_base_state_dict(torch, bert_mod, 12)
+        trees = {}
+        for name in ("pytorch_model.bin", "model.safetensors"):
+            hf = os.path.join(root, name.split(".")[1])
+            os.makedirs(hf)
+            if name.endswith(".bin"):
+                torch.save(sd, os.path.join(hf, name))
+            else:
+                write_safetensors(os.path.join(hf, name), sd)
+            out = os.path.join(root, f"{name}.pickle")
+            t1 = time.perf_counter()
+            import_hf_bert.main([hf, out])
+            print(f"  {name}: {os.path.getsize(os.path.join(hf, name)) / 2**20:.0f} MiB "
+                  f"imported in {time.perf_counter() - t1:.1f} s")
+            trees[name] = load_pytree(out, "cpu")
+        a, b = (dict(tree_items(t)) for t in trees.values())
+        check(sorted(a) == sorted(b) and all(torch.equal(a[p], b[p]) for p in a),
+              "the .bin and .safetensors trees differ")
+        cfg = bert_mod.BertConfig()
+        last = cfg.num_layers - 1
+        check(torch.equal(a["embeddings/word"], sd["embeddings.word_embeddings.weight"]) and
+              torch.equal(a[f"layers/{last}/ffn/output/kernel"],
+                          sd[f"encoder.layer.{last}.output.dense.weight"].T),
+              "the imported tree is not the state dict's")
+        rng = np.random.RandomState(12)
+        ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 128))).long()
+        mask = torch.ones(8, 128, dtype=torch.int64)
+        mask[:, VALID_TOKENS:] = 0
+        reset()
+        with torch.no_grad():
+            on_card = bert_mod.apply(load_pytree(os.path.join(root, "model.safetensors.pickle")),
+                                     ids.cuda(), mask.cuda(), cfg)
+            on_cpu = bert_mod.apply(trees["model.safetensors"], ids, mask, cfg)
+        check_launches(by_dtype(), {"attn_fwd": {"float32": cfg.num_layers}},
+                       "the imported BERT's forward")
+        for name, x, y in zip(("sequence", "pooled"), on_card, on_cpu):
+            print(f"  imported BERT-base, (8, 128): {name} max|card - cpu| "
+                  f"{float((x.cpu() - y).abs().max()):.3g}")
+            torch.testing.assert_close(x.cpu(), y, rtol=1e-3, atol=1e-4)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        del sd, trees, a, b, on_card, on_cpu
+        shutil.rmtree(os.path.join(root, "bin"))
+        shutil.rmtree(os.path.join(root, "safetensors"))
+
+        phase("main path 12: python -m eeg_multimodal_torch.tools.recover_vocab on a seeded "
+              "mini-reference (120 rows whose ids are their texts' encoding)")
+        t0 = time.perf_counter()
+        ref = write_mini_reference(os.path.join(root, "reference"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tok = recover_vocab.main(["--reference", ref, "--out",
+                                      os.path.join(root, "recovered_vocab.json")])
+        print("  " + buf.getvalue().strip())
+        check(buf.getvalue().strip().endswith("120/120 rows byte-exact"),
+              f"recover_vocab: {buf.getvalue()}")
+        check(len(tok.word_memo) > 0, "recover_vocab memoized no word")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+
+        phase("main path 12: python -m eeg_multimodal_torch.graft_entry (the flagship forward, "
+              "4 layers, bf16, batch 8, S = 512)")
+        reset()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            logits = graft_entry.main([])
+        print("  " + buf.getvalue().strip() + f" ({time.perf_counter() - t0:.1f} s)")
+        check(buf.getvalue() == "entry ok: (8, 2) float32\n", f"entry: {buf.getvalue()}")
+        check(bool(torch.isfinite(logits).all()), "entry: non-finite logits")
+        check_launches(by_dtype(), {"attn_fwd": {"bfloat16": 4}}, "the graft entry")
+
+        phase("main path 12: graft_entry.dryrun_multichip(2), full size, two ranks on the "
+              f"card over gloo, {DRYRUN_SPAWN_S} s limit")
+        t0 = time.perf_counter()
+        results = graft_entry.dryrun_multichip(2, deadline_s=DRYRUN_SPAWN_S)
+        print(f"  {time.perf_counter() - t0:.1f} s for the spawn and both stages")
+        steps = 2
+        tiny = {"attn_fwd": {"float32": 2 * (2 * steps + 1)}, "attn_bwd": {"float32": 2 * steps}}
+        full = {"attn_fwd": {"float32": 12 * 2 * steps}, "attn_bwd": {"float32": 12 * steps}}
+        check(results[0]["mesh"] == {"data": 1, "model": 2}, f"mesh {results[0]['mesh']}")
+        for rank, r in enumerate(results):
+            check_launches(r["launches"]["tiny"], tiny, f"dry run stage 1, rank {rank}")
+            check_launches(r["launches"]["mesh_arm"], full, f"dry run mesh arm, rank {rank}")
+        check_launches(results[0]["launches"]["single_arm"], full, "dry run single-rank arm")
+        r = results[0]
+        print(f"  stage 1 train loss {r['train_loss']:.6f} eval loss {r['eval_loss']:.6f}; "
+              f"stage 2 loss mesh {r['loss_mesh']:.6f} ({r['t_mesh']:.2f} s), single "
+              f"{r['loss_one']:.6f} ({r['t_one']:.2f} s), |delta| {r['parity_delta']:.3g}")
+
+        tree, run_dir = (os.path.join(examples_root, d) for d in ("tree", "run"))
+        phase("main path 12: python -m eeg_multimodal_torch.tools.r5_modal_seeds --epochs 1 on "
+              "path 11's tree and run directory (three seeds)")
+        reset()
+        t0 = time.perf_counter()
+        summary = r5_modal_seeds.main(["--run_dir", run_dir, "--data_root", tree, "--out",
+                                       os.path.join(root, "modal3"), "--epochs", "1"])
+        print(f"  {time.perf_counter() - t0:.1f} s")
+        check([r["seed"] for r in summary["rows"]] == [980616, 1, 2] and all(
+            math.isfinite(r["best_acc"]) for r in summary["rows"]), f"r5_modal_seeds {summary}")
+        check(os.path.exists(os.path.join(root, "modal3", "summary.json")), "no summary.json")
+        n_steps = 64 // 8  # path 11's 64 train rows; its 16 eval rows in one batched forward
+        check_launches(by_dtype(), {"attn_fwd": {"bfloat16": 3 * layers * (2 * n_steps + 1)},
+                                    "attn_bwd": {"bfloat16": 3 * layers * n_steps}},
+                       "r5_modal_seeds, three seeds")
+
+        phase("main path 12: python -m eeg_multimodal_torch.scripts.data on path 11's raw rows")
+        work = os.path.join(root, "data_script")
+        os.makedirs(work)
+        os.chdir(work)
+        reset()
+        t0 = time.perf_counter()
+        check(data_script.main(sorted(glob.glob(os.path.join(tree, "raw", "*.txt")))) == 0,
+              "scripts.data")
+        os.chdir(cwd)
+        print(f"  {time.perf_counter() - t0:.1f} s; launches {by_dtype()}")
+        files = embedding_files(work)
+        check(files == embedding_files(tree) and len(files) == 20,
+              f"scripts.data wrote {files}")
+        for rel in files:
+            x, y = (open(os.path.join(r, "data", "embedding", rel), "rb").read()
+                    for r in (work, tree))
+            if "/txt/" in rel:
+                check(x == y, f"scripts.data: {rel} differs from path 11's")
+            else:
+                np.testing.assert_allclose(pickle.loads(x), pickle.loads(y), **EMBED_TOL)
+        # ViT-B/32 and B/16: 12 launches a chunk of 16 rows, 4 + 1 chunks a modal
+        check_launches(by_dtype(), {"attn_fwd": {"float32": 2 * 2 * 5 * 12}}, "scripts.data")
+
+        phase("main path 12: python -m eeg_multimodal_torch.tools.r5_accuracy tree on the "
+              "mini-reference")
+        os.environ["REFERENCE_DIR"] = ref
+        r5_root = r5_accuracy.R5
+        r5_accuracy.R5 = os.path.join(root, "r5")
+        reset()
+        t0 = time.perf_counter()
+        check(r5_accuracy.main(["tree"]) == 0, "r5_accuracy tree")
+        print(f"  {time.perf_counter() - t0:.1f} s")
+        check(os.path.exists(os.path.join(r5_accuracy.R5, ".done_tree")), "no tree marker")
+        check(len(embedding_files(os.path.join(r5_accuracy.R5, "user_tree"))) == 20,
+              "r5_accuracy's tree")
+        check_launches(by_dtype(), {"attn_fwd": {"float32": 2 * 2 * 5 * 12}},
+                       "r5_accuracy tree")
+        reset()
+        check(r5_accuracy.main(["tree"]) == 0 and by_dtype() == {},
+              "r5_accuracy tree again: the marker did not skip the phase")
+        r5_accuracy.R5 = r5_root
+    finally:
+        os.chdir(cwd)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root)
+        shutil.rmtree(examples_root)
+    torch.cuda.empty_cache()
 
 
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
@@ -3766,7 +4087,8 @@ def main():
     pretext = run_pretext(torch, dev, all_kernels, layers, tree)
     block_launches, _ = run_mesh(torch, dev, rng, all_kernels, layers, steps)
     run_entry_points(torch, all_kernels, layers)
-    run_examples(torch, all_kernels)
+    examples_root = run_examples(torch, all_kernels)
+    run_remaining_entry_points(torch, all_kernels, layers, examples_root)
 
     phase("main path 2: TrainAndTest.train_on(auto_truncate=False) -> Trainer.fit, S = 512")
     train, test = synth_rows(D, rng, N_TRAIN), synth_rows(D, rng, N_EVAL)

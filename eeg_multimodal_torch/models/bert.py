@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as fused
+from ..utils.device import resolve_device
 from .layers import column_parallel, draw_seeds, dropout, layer_norm, linear, row_parallel
 
 
@@ -212,3 +213,20 @@ def apply(
     pooled = torch.tanh(linear(params["pooler"], x[:, 0]))
     return x, pooled
 
+
+
+def from_torch_state_dict(state_dict, config: BertConfig = BertConfig(), prefix: str = "",
+                          device=None):
+    """An HF ``BertModel`` state dict -> the port's f32 BERT tree on
+    ``device`` (the card unless "cpu"), as the JAX package's
+    ``models/bert.py::from_torch_state_dict`` reads it (``:228-277`` there).
+
+    Values may be tensors or numpy arrays. ``prefix`` handles nesting, e.g.
+    ``"bert."`` for the reference's fusion checkpoints. The keys are read as
+    given (no wrapper is stripped and no name is mapped): a key the layout
+    needs and the state dict lacks raises ``KeyError`` naming it. The reader
+    is ``train/checkpoint.py``'s, the one ``fusion_from_torch_state_dict``
+    uses."""
+    from ..train.checkpoint import _Reader  # checkpoint imports the models
+
+    return _Reader(state_dict, resolve_device(device)).bert(config, prefix)

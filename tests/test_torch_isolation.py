@@ -63,7 +63,12 @@ def test_importing_every_port_module_loads_no_jax():
             "eeg_multimodal_torch.utils.profiling", "eeg_multimodal_torch.parallel.mesh",
             "eeg_multimodal_torch.parallel.sharding", "eeg_multimodal_torch.parallel.train",
             "eeg_multimodal_torch.visualization.plot",
-            "eeg_multimodal_torch.visualization.plot_new"} <= set(mods)
+            "eeg_multimodal_torch.visualization.plot_new",
+            "eeg_multimodal_torch.tools.import_hf_bert", "eeg_multimodal_torch.tools.recover_vocab",
+            "eeg_multimodal_torch.tools.r5_modal_seeds",
+            "eeg_multimodal_torch.tools.repro_fused_dp_scan_nan",
+            "eeg_multimodal_torch.tools.r5_accuracy", "eeg_multimodal_torch.graft_entry",
+            "eeg_multimodal_torch.scripts", "eeg_multimodal_torch.scripts.data"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -269,3 +274,41 @@ def test_attention_kernel_wrappers_refuse_cpu_tensors():
         A.attn_dropout_mask(seed, 1, 2, 8, 0.1)
     assert [k.launches for k in A.KERNELS] == launches
     assert A._lib.cache_info().currsize == 0  # nothing was built
+
+
+def test_remaining_entry_points_refuse_to_run_without_a_card_and_load_no_jax(tmp_path):
+    """``r5_modal_seeds``, the NaN repro, the graft entry (its check and
+    its dry run), ``scripts.data`` and ``r5_accuracy`` take the card unless
+    told otherwise: each raises before it writes a file, builds a kernel or
+    spawns a rank, in an interpreter that then holds no JAX."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device resolves to it")
+    work = tmp_path / "work"
+    work.mkdir()
+    code = (
+        "import os, sys\n"
+        f"os.chdir({str(work)!r})\n"
+        "from eeg_multimodal_torch import graft_entry\n"
+        "from eeg_multimodal_torch.ops import attention as A\n"
+        "from eeg_multimodal_torch.scripts import data\n"
+        "from eeg_multimodal_torch.tools import r5_accuracy, r5_modal_seeds\n"
+        "from eeg_multimodal_torch.tools import repro_fused_dp_scan_nan as repro\n"
+        "r5_accuracy.R5 = os.path.join(os.getcwd(), 'r5')\n"
+        "calls = [lambda: r5_modal_seeds.main(['--run_dir', 'none']), lambda: repro.main([]),\n"
+        "         lambda: graft_entry.main([]), lambda: graft_entry.main(['dryrun', '2']),\n"
+        "         lambda: data.main(['task_1.txt']), lambda: r5_accuracy.main(['tree'])]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without a card')\n"
+        "assert os.listdir('.') == [], os.listdir('.')\n"
+        "assert A._lib.cache_info().currsize == 0\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
