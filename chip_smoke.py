@@ -6,7 +6,8 @@
 Builds the port's CUDA C++ kernels from this checkout, one nvcc process
 per source, started together (the DP block, forward and backward;
 attention, forward, backward on the tensor cores and the dropout-mask test
-hook), and holds each against its
+hook: f32 on mma.sync, bf16 on wgmma with TMA loads, at D = 64 and 128 and
+at sequence lengths no multiple of the tiles), and holds each against its
 plain PyTorch version: the DP forward bit for bit where the card's math
 library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
 attention mask bit for bit against ``keep_mask_plain``, also with a seed
@@ -28,8 +29,8 @@ stochastic rounding on the card. Then drives the main paths at full width
    S = 80, two train+eval epochs through ``Trainer.run_epoch``, where both
    DP kernels and (the H100's gate) both attention kernels run;
 3. ``TrainAndTest(epochs=2)`` at its default bf16 compute through
-   ``train_on(compact_vocab=True)`` at S = 80, where the bf16
-   instantiations of the attention kernels run; then ``bench.py``'s
+   ``train_on(compact_vocab=True)`` at S = 80, where the bf16 attention
+   kernels run; then ``bench.py``'s
    configuration (bf16 compute, bf16 Adam moments with stochastic rounding,
    ``precast_params``, compact vocab, composed DP) through ``Trainer.fit``,
    writing and reloading a full-vocab best checkpoint;
@@ -101,12 +102,14 @@ stochastic rounding on the card. Then drives the main paths at full width
    losses within rtol 2e-4, F1 equal, the gathered params within the
    stated bounds, every rank path 1's launches; ``shard_dpsgd_trainer`` at
    (1, 2), a 3-member ``SweepRunner(mesh=(2, 1))`` against the meshless
-   sweep, the flagship tree through ``save_pytree_dcp`` and back;
+   sweep, the fast phase modes (shared features, the paired encode) one
+   epoch each on a (2, 1) mesh against their meshless fits, the flagship
+   tree through ``save_pytree_dcp`` and back;
 11. the entry points outside the package, through their ``main``s, on a
    seeded stand-in for the reference's test split (``bench.write_stand_in``,
    601 rows, under a temporary ``REFERENCE_DIR``): ``python -m
-   eeg_multimodal_torch.bench`` at 2402 / 601 with K = 1 and R = 2 (its
-   JSON line parsed, the bf16 attention launches of three epochs), the step
+   eeg_multimodal_torch.bench`` at 2402 / 601 with K = 1 and R = 1 (its
+   JSON line parsed, the bf16 attention launches of two epochs), the step
    roofline at N = 2 and 8 (every row a bound and a share of at most 1),
    the attention table, ``train_demo`` plain and ``--fused_dp``; then a
    user tree from 80 raw rows (``process``, ``GetEmbedding``) and every
@@ -171,6 +174,8 @@ SOURCES = {"dp_fwd": "eeg_multimodal_torch/csrc/dp_block.cu",
            "dp_bwd": "eeg_multimodal_torch/csrc/dp_block.cu",
            "attn_fwd": "eeg_multimodal_torch/csrc/attention.cu",
            "attn_bwd": "eeg_multimodal_torch/csrc/attention.cu"}
+# the bf16 attention kernels (wgmma + TMA) have a source of their own
+BF16_SOURCE = "eeg_multimodal_torch/csrc/attention_bf16.cu"
 ROUTES = {"dp_fwd": "cuda", "dp_bwd": "cuda", "attn_fwd": "cuda", "attn_bwd": "cuda"}
 REPLACES = {"dp_fwd": "eeg_multimodal_tpu/ops/dp_pallas.py:63",
             "dp_bwd": "eeg_multimodal_tpu/ops/dp_pallas.py:76",
@@ -428,15 +433,15 @@ def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(3):
         step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
     print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s)" + (
         f"; matmul work ~{flops / 1e9:.0f} GFLOP/step ({work}) = "
         f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak" if flops else ""))
     host = {}
-    by_kernel = device_us(torch, step, n=3, host=host)
+    by_kernel = device_us(torch, step, n=2, host=host)
     if not by_kernel:
         print("  the profiler saw no device activity: device time not measured")
         return by_kernel
@@ -486,6 +491,13 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
              (8, 12, 128, 64, torch.float32), (8, 12, 512, 64, torch.float32),
              (1, 2, 512, 128, torch.float32), (2, 3, 80, 64, torch.bfloat16),
              (8, 12, 80, 64, torch.bfloat16), (8, 12, 512, 64, torch.bfloat16)]
+    # the bf16 kernels' tiles: 64 rows a block, 64 keys (32 queries in dK/dV)
+    # a tile, D in two 64-column panels at 128, S no multiple of 64
+    cases += [(8, 12, 128, 64, torch.bfloat16), (8, 12, 256, 64, torch.bfloat16),
+              (2, 3, 65, 64, torch.bfloat16), (2, 3, 197, 64, torch.bfloat16),
+              (1, 2, 512, 128, torch.bfloat16), (2, 3, 128, 128, torch.bfloat16),
+              (2, 3, 256, 128, torch.bfloat16), (2, 3, 65, 128, torch.bfloat16),
+              (2, 3, 197, 128, torch.bfloat16)]
     windows, eval_b = dpsgd_bs
     cases += [(B, 12, 80, 64, torch.float32) for B in windows + (eval_b,)
               if (B, 12, 80, 64, torch.float32) not in cases]
@@ -1461,6 +1473,36 @@ def run_drivers(torch, dev, rng, all_kernels, layers, steps):
 # GEMMs sum in other orders (the attention kernels and the DP block are bit
 # for bit per member), the tolerance of the CPU parity tests
 MEMBER_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+# the bf16 attention launches at S = 512 of path 11's bench_attention run
+# (its S = 512 rows), for the kernels line's S = 512 bf16 rows
+SEQ_LAUNCHES = {}
+
+
+class LaunchesAt:
+    """Counts, beside the wrappers' own counts, the launches of each kernel
+    whose first argument is a (B, H, S, D) tensor of ``dtype`` at the given
+    S: ``counts`` by kernel name. The wrappers' counts are by dtype only."""
+
+    def __init__(self, kernels, dtype, seq):
+        self.kernels, self.dtype, self.seq = kernels, dtype, seq
+        self.counts = {k.name: 0 for k in kernels}
+
+    def __enter__(self):
+        self.saved = [k._launch for k in self.kernels]
+        for k, launch in zip(self.kernels, self.saved):
+            def counted(*args, _launch=launch, _name=k.name, **kwargs):
+                out = _launch(*args, **kwargs)
+                if args[0].dtype == self.dtype and args[0].shape[2] == self.seq:
+                    self.counts[_name] += 1
+                return out
+            k._launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        for k, launch in zip(self.kernels, self.saved):
+            k._launch = launch
 
 
 def launches_by_name(all_kernels):
@@ -2592,7 +2634,7 @@ def time_pretext_attention(torch, A, gen, dev, pretext, err, vit_train_err):
             e = (err[(name, "bfloat16", (B, H, S, D))] if tag == "mlm"
                  else vit_train_err[(name, (B, H, S, D))])
             rows.append({
-                "name": f"{name}_{tag}_bf16", "route": ROUTES[name], "source": SOURCES[name],
+                "name": f"{name}_{tag}_bf16", "route": ROUTES[name], "source": BF16_SOURCE,
                 "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": e,
                 "ms": t[key], "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
@@ -2655,7 +2697,7 @@ def spawn_mesh(torch, root, backend, world, job, **kw):
     return results
 
 
-def mesh_step_times(torch, step, rank, label, n=5):
+def mesh_step_times(torch, step, rank, label, n=3):
     """Host ms per step over ``n`` steps and device busy ms per step from one
     profiler session of ``n`` steps, the same calls on every rank (the
     steps' collectives pair up). Returns (host ms, device ms or None)."""
@@ -2681,11 +2723,15 @@ def mesh_step_times(torch, step, rank, label, n=5):
     return host, busy
 
 
-def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step):
+def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step, tc_kw=None,
+                 fast=(), profile=True):
     """``shard_trainer`` + ``Trainer.fit`` of the flagship (fused DP, f32,
-    two epochs) on this rank; its launches, its history, the gathered params
-    (rank 0, as numpy) and a profiled step; with ``sync_step`` one more step
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    two epochs, or the ``TrainConfig`` fields ``tc_kw``) on this rank; its
+    launches, its history, the gathered params (rank 0, as numpy) and, with
+    ``profile``, a profiled step; with ``sync_step`` one more step under
+    ``torch.cuda.set_sync_debug_mode("error")``. ``fast``: (name,
+    ``TrainConfig`` fields) of more fits in the same group after it, each
+    without a profile, their results under "fast" by name."""
     from eeg_multimodal_torch.data import datasets as D
     from eeg_multimodal_torch.models import fusion
     from eeg_multimodal_torch.ops import attention as A
@@ -2700,8 +2746,9 @@ def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step):
         train, test = pickle.load(f)
     dev = torch.device("cuda", 0)
     fc = dataclasses.replace(fusion.config_for("ti", "lapacian_dropout"), fused_dp_kernel=True)
-    tr = Trainer(fc, TrainConfig(epochs=2, f1_best_init=-1.0), device=dev)
-    label = f"mesh {mesh_shape}"
+    tr = Trainer(fc, TrainConfig(**{"epochs": 2, "f1_best_init": -1.0, **(tc_kw or {})}),
+                 device=dev)
+    label = f"mesh {mesh_shape}" + "".join(f" {k}" for k, v in (tc_kw or {}).items() if v is True)
     mesh = shard_trainer(tr, make_mesh(*mesh_shape))
     kernels = K.KERNELS + A.KERNELS
     for k in kernels:
@@ -2723,7 +2770,9 @@ def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step):
     def step():
         states[:] = tr.steps.train_step(tr.params, *states, batch, w, EPS, gen)[:2]
 
-    host, busy = mesh_step_times(torch, step, rank, label)
+    host = busy = None
+    if profile:
+        host, busy = mesh_step_times(torch, step, rank, label)
     if sync_step:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises
@@ -2733,9 +2782,13 @@ def mesh_fit_job(torch, rank, mesh_shape, data_path, out_dir, sync_step):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
     shard = tuple(tr.params["bert"]["layers"][0]["attn"]["query"]["kernel"].shape)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del tr, states
     return {"history": out["history"], "launches": launches, "params": params, "wall": wall,
-            "host_ms": host, "device_ms": busy, "shard": shard,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "host_ms": host, "device_ms": busy, "shard": shard, "peak_gib": peak,
+            "fast": {name: mesh_fit_job(torch, rank, mesh_shape, data_path,
+                                        os.path.join(out_dir, name), False, kw, profile=False)
+                     for name, kw in fast}}
 
 
 def mesh_dpsgd_job(torch, rank, mesh_shape, data_path):
@@ -2776,6 +2829,47 @@ def mesh_sweep_job(torch, rank, mesh_shape, data_path, epsilons):
 
 
 MESH_JOBS = {"fit": mesh_fit_job, "dpsgd": mesh_dpsgd_job, "sweep": mesh_sweep_job}
+# path 10's fast phase modes, each one epoch in the (2, 1) run's group after
+# its fit: features encoded once for both phases, and both phases' encoders
+# as one forward over the batch stacked twice (under 'data' each stacked
+# copy's rows are a call of their own: two attention launches a layer)
+MESH_FAST = (("shared", {"epochs": 1, "share_phase_dropout": True}),
+             ("paired", {"epochs": 1, "paired_phase_encode": True}))
+
+
+def check_mesh_fit(torch, label, res, want_history, params, init, launches, moves):
+    """Every rank's history of a meshed fit against the meshless
+    ``want_history`` (losses within ``MESH_LOSS_RTOL``, F1 within
+    ``MESH_F1_ABS``), its launches equal to ``launches``, rank 0's gathered
+    params against the meshless ``params`` (each element within 4 x
+    ``moves``, the learning rate x the steps; each leaf's update within
+    ``MESH_UPDATE_RTOL``, the leaves whose exact gradient is 0 left out).
+    Returns (worst loss rtol, worst element, worst update rtol)."""
+    from eeg_multimodal_torch.utils.trees import tree_items
+
+    worst_loss = worst_el = worst_upd = 0.0
+    for rank, r in enumerate(res):
+        for a, b in zip(r["history"], want_history):
+            for key in ("train_loss", "test_loss"):
+                rel = abs(a[key] - b[key]) / abs(b[key])
+                worst_loss = max(worst_loss, rel)
+                check(rel <= MESH_LOSS_RTOL, f"{label} rank {rank}: {key} {a[key]} against "
+                      f"{b[key]} (rtol {rel:.3g})")
+            check(abs(a["f1"] - b["f1"]) <= MESH_F1_ABS,
+                  f"{label} rank {rank}: F1 {a['f1']} against {b['f1']}")
+        check_launches(r["launches"], launches, f"{label} rank {rank}")
+    got = res[0]["params"]
+    for path, t in tree_items(params):
+        g = torch.from_numpy(got[path]).to(t.device)
+        el = float((g - t).abs().max())
+        check(el <= 4 * moves, f"{label}: {path} moved {el} from the meshless")
+        upd = t - init[path]
+        rel = float((g - init[path] - upd).norm() / upd.norm().clamp_min(1e-30))
+        if not path.endswith(("attn/key/bias", "in_proj_bias")):  # exact gradient 0 (key)
+            check(rel <= MESH_UPDATE_RTOL, f"{label}: {path} update off by {rel:.3g}")
+            worst_upd = max(worst_upd, rel)
+        worst_el = max(worst_el, el)
+    return worst_loss, worst_el, worst_upd
 
 
 def run_mesh(torch, dev, rng, all_kernels, layers, steps):
@@ -2833,34 +2927,15 @@ def run_mesh(torch, dev, rng, all_kernels, layers, steps):
         run_root = os.path.join(root, f"{backend}_{shape[0]}x{shape[1]}")
         os.makedirs(run_root)
         t0 = time.perf_counter()
+        fast = MESH_FAST if shape == (2, 1) else ()
+        for name, _ in fast:
+            os.makedirs(os.path.join(run_root, name))
         res = spawn_mesh(torch, root, backend, world, "fit", mesh_shape=shape,
-                         data_path=data_path, out_dir=run_root, sync_step=backend == "nccl")
+                         data_path=data_path, out_dir=run_root, sync_step=backend == "nccl",
+                         fast=fast)
         wall = time.perf_counter() - t0
-        worst_loss = 0.0
-        for rank, r in enumerate(res):
-            for a, b in zip(r["history"], want["history"]):
-                for key in ("train_loss", "test_loss"):
-                    rel = abs(a[key] - b[key]) / abs(b[key])
-                    worst_loss = max(worst_loss, rel)
-                    check(rel <= MESH_LOSS_RTOL, f"{label} rank {rank}: {key} {a[key]} against "
-                          f"{b[key]} (rtol {rel:.3g})")
-                check(abs(a["f1"] - b["f1"]) <= MESH_F1_ABS,
-                      f"{label} rank {rank}: F1 {a['f1']} against {b['f1']}")
-            check_launches(r["launches"], path1, f"{label} rank {rank}")
-        steps_run = 2 * steps
-        worst_el = worst_upd = 0.0
-        got = res[0]["params"]
-        for path, t in tree_items(plain.params):
-            g = torch.from_numpy(got[path]).to(dev)
-            el = float((g - t).abs().max())
-            check(el <= 4 * lr * steps_run, f"{label}: {path} moved {el} from the meshless")
-            upd = t - init[path]
-            rel = float((g - init[path] - upd).norm() / upd.norm().clamp_min(1e-30))
-            if not path.endswith(("attn/key/bias", "in_proj_bias")):  # exact gradient 0 (key)
-                check(rel <= MESH_UPDATE_RTOL, f"{label}: {path} update off by {rel:.3g}")
-                worst_upd = max(worst_upd, rel)
-            worst_el = max(worst_el, el)
-        del got
+        worst_loss, worst_el, worst_upd = check_mesh_fit(
+            torch, label, res, want["history"], plain.params, init, path1, lr * 2 * steps)
         check(sorted(os.listdir(os.path.join(run_root, "log"))) ==
               ["best_record.txt", "metrics.jsonl", "whole_record.txt"], f"{label}: records")
         check(len(open(os.path.join(run_root, "log", "metrics.jsonl")).read().splitlines()) == 2,
@@ -2883,8 +2958,32 @@ def run_mesh(torch, dev, rng, all_kernels, layers, steps):
         if shape == (2, 1):
             block_launches.update({f"{k}_r0": sum(v.values()) for k, v in
                                    res[1]["launches"].items() if k.startswith("dp")})
+            fast_res = [r["fast"] for r in res]
         del res
     del plain, init
+
+    phase("main path 10: the fast phase modes (shared features, paired encode), one epoch "
+          "each in the (2, 1) run's group, against the meshless fits")
+    fast_launches = {
+        "shared": {"dp_fwd": {"float32": 2 * steps + 1}, "dp_bwd": {"float32": 2 * steps},
+                   "attn_fwd": {"float32": layers * (steps + 1)},
+                   "attn_bwd": {"float32": layers * steps}},
+        "paired": {"dp_fwd": {"float32": 2 * steps + 1}, "dp_bwd": {"float32": 2 * steps},
+                   "attn_fwd": {"float32": layers * (2 * steps + 1)},
+                   "attn_bwd": {"float32": layers * 2 * steps}}}
+    for name, tc_kw in MESH_FAST:
+        ref = Trainer(fc, TrainConfig(**{"f1_best_init": -1.0, **tc_kw}))
+        init = {p: t.detach().clone() for p, t in tree_items(ref.params)}
+        want_fast = ref.fit(train, test, EPS, echo=False)
+        label = f"(2, 1) over gloo, {name}"
+        worst = check_mesh_fit(torch, label, [r[name] for r in fast_res], want_fast["history"],
+                               ref.params, init, fast_launches[name], lr * steps)
+        print(f"  {label}: max rel loss error {worst[0]:.3g}, F1 equal; gathered params: max "
+              f"|mesh - meshless| {worst[1]:.3g}, max rel update error {worst[2]:.3g}; "
+              f"per rank: " + "; ".join(f"fit {r[name]['wall']:.1f} s" for r in fast_res))
+        summary[label] = {"loss_rel": worst[0], "param_abs": worst[1], "update_rel": worst[2]}
+        del ref, init
+    del fast_res
 
     phase("main path 10: shard_dpsgd_trainer at (1, 2) over gloo, one epoch, against the "
           "meshless DPSGDTrainer")
@@ -2944,7 +3043,7 @@ def run_mesh(torch, dev, rng, all_kernels, layers, steps):
     return block_launches, summary
 
 
-ENTRY_ENV = {"EEG_BENCH_EPOCHS_PER_CALL": "1", "EEG_BENCH_WINDOWS": "2",
+ENTRY_ENV = {"EEG_BENCH_EPOCHS_PER_CALL": "1", "EEG_BENCH_WINDOWS": "1",
              "ROOFLINE_N_SHORT": "2", "ROOFLINE_N_LONG": "8"}
 
 
@@ -2953,8 +3052,8 @@ def run_entry_points(torch, all_kernels, layers):
     ``main``s as ``python -m`` runs them, on a seeded stand-in for the
     reference's committed test split (601 rows of at most 65 tokens, under a
     temporary ``REFERENCE_DIR``): the bench at 2402 / 601 with K = 1 and
-    R = 2 (its JSON line parsed, finite and positive; bf16 attention
-    launches of three epochs), the step roofline at N = 2 and 8 (every row
+    R = 1 (its JSON line parsed, finite and positive; bf16 attention
+    launches of two epochs), the step roofline at N = 2 and 8 (every row
     a bound and a share of at most 1), the attention table, and
     ``train_demo`` at 64 rows, one epoch, plain and ``--fused_dp`` (the DP
     kernels in the latter)."""
@@ -2963,6 +3062,7 @@ def run_entry_points(torch, all_kernels, layers):
 
     from eeg_multimodal_torch import bench
     from eeg_multimodal_torch.examples import train_demo
+    from eeg_multimodal_torch.ops import attention as A
     from eeg_multimodal_torch.tools import bench_attention, roofline_step
 
     def reset():
@@ -2979,7 +3079,7 @@ def run_entry_points(torch, all_kernels, layers):
     os.environ.update(env)
     try:
         phase("main path 11: python -m eeg_multimodal_torch.bench on a seeded stand-in of the "
-              "reference's test split (2402 / 601 rows, S = 80), K = 1, R = 2")
+              "reference's test split (2402 / 601 rows, S = 80), K = 1, R = 1")
         print(f"  the reference's files are not in the repo: bench.write_stand_in writes 601 "
               f"rows from numpy seed 601 under {ref}; every number here is the seeded "
               "stand-in's")
@@ -3018,7 +3118,10 @@ def run_entry_points(torch, all_kernels, layers):
         phase("main path 11: python -m eeg_multimodal_torch.tools.bench_attention (BERT-base, "
               "batch 8, bf16, p = 0.1, S = 128 / 256 / 512)")
         reset()
-        table = bench_attention.main([])
+        with LaunchesAt(A.KERNELS, torch.bfloat16, 512) as at_512:
+            table = bench_attention.main([])
+        SEQ_LAUNCHES.update(at_512.counts)
+        print(f"  bf16 launches at S = 512: {at_512.counts}")
         check(len(table) == 6 and all(math.isfinite(p) and math.isfinite(k) and p > 0 and k > 0
                                       for _, _, p, k, _, _ in table), f"attention table {table}")
         got = by_dtype()
@@ -3516,11 +3619,12 @@ def main():
     for line in build_log.splitlines():  # ptxas -v: registers, shared memory, spills
         if "Compiling entry function" in line:
             # the mangled name's length prefix, then the kernel's name
-            name = re.search(r"\d((?:attn|dp)_[a-z]+_kernel|empty_kernel)", line)
-            targs = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            name = re.search(r"\d((?:attn|dp)_\w+?_kernel|empty_kernel)", line)
+            targs = re.search(r"kernelI(?:(f|13__nv_bfloat16))?Li(\d+)E", line)
+            dtype = {"f": "f32, ", "13__nv_bfloat16": "bf16, "}.get(targs.group(1), "") if targs \
+                else ""
             entry = (name.group(1) if name else "?") + (
-                f"<{'f32' if targs.group(1) == 'f' else 'bf16'}, {targs.group(2)}>"
-                if targs else "")
+                f"<{dtype}{targs.group(2)}>" if targs else "")
         elif "Used" in line or re.search(r"[1-9]\d* bytes spill", line):
             print(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()[:100]}")
 
@@ -4357,16 +4461,17 @@ def main():
               f"bound (bf16 tensor cores) fwd {bounds['attn_fwd'][0] * 1e3:.2f} us "
               f"({bounds['attn_fwd'][1]}), bwd {bounds['attn_bwd'][0] * 1e3:.2f} us "
               f"({bounds['attn_bwd'][1]})")
-        if S == 80:  # path 3's shape
-            for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
-                kernels.append({
-                    "name": name + "_bf16", "route": ROUTES[name], "source": SOURCES[name],
-                    "replaces": REPLACES[name],
-                    "launches": launches_bf16[name].get("bfloat16", 0),
-                    "max_abs_err": err[(name, "bfloat16", (B, H, S, D))], "ms": t[key],
-                    "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
-                    "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
-                })
+        # S = 80: path 3's shape; S = 512: path 11's bench_attention rows at S = 512
+        for name, key in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
+            kernels.append({
+                "name": name + ("_bf16" if S == 80 else "_bf16_512"), "route": ROUTES[name],
+                "source": BF16_SOURCE, "replaces": REPLACES[name],
+                "launches": (launches_bf16[name].get("bfloat16", 0) if S == 80
+                             else SEQ_LAUNCHES[name]),
+                "max_abs_err": err[(name, "bfloat16", (B, H, S, D))], "ms": t[key],
+                "plain_ms": t[key + " plain"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": t[key + " sdpa"],
+            })
 
     phase("timing: attention forward at the ViT's shapes, f32, zero bias, p = 0 (main path 8)")
     kernels += time_vit_attention(torch, A, gen, dev, embed, vit_err)

@@ -11,9 +11,12 @@
 //   out    = round_T(p_drop) v                   (f32 accumulation)
 //
 // and its gradient, regenerating the dropout mask from the seed instead of
-// storing it. T is float or bf16; the accumulation is f32, and with T = bf16
-// values are rounded where the JAX kernel casts to the input dtype (P_drop,
-// dO and dS before their products).
+// storing it. The kernels here are the f32 ones (T = float); at bf16 the
+// same function, with values rounded where the JAX kernel casts to the
+// input dtype (P_drop, dO and dS before their products), runs on the kernels
+// of attention_bf16.cu (wgmma + TMA), to which the C interface below sends
+// every bf16 call. This file keeps the mask hook and that interface; the
+// launch parameters and the mask's grouping are in attention.cuh.
 //
 // What bounds it on the H100: the matrix products. At the 512-token path's
 // (8, 12, 512, 64) the forward needs 4 B H S^2 D = 6.44 GFLOP and the
@@ -34,16 +37,20 @@
 //    results flush to 0. That is of the order of expf's 2 ulp: on the card
 //    expf gave the same f32 errors against the plain version and cost up
 //    to 4 % of the backward (PERF.md).
-//  - bf16 is exact in TF32 (lo = 0): one pass, bf16 products with f32
-//    accumulation, as the JAX kernel computes them.
 // The kernels stay well above that bound (PERF.md has the times): they are
 // held back by instruction throughput and latency, not by the tensor cores.
 // Every warp splits each operand element it reads (four instructions), and
 // an SM holds 12 to 16 warps, too few to hide the mma.sync and shared-memory
-// latencies. mma.sync and not wgmma: TF32 wgmma takes K-major operands only,
-// so P.V would need V^T in shared memory; mma.sync reaches the tensor cores
-// with a simple register fragment layout. wgmma (operands split once per
-// block, not per warp) and TMA are the next levers.
+// latencies. mma.sync and not wgmma for f32: TF32 wgmma takes K-major
+// operands only, so P.V would need V^T in shared memory, and the 3xTF32
+// split has to be made on every operand element before the product, which
+// wgmma's shared-memory operands would need staged twice (hi and lo);
+// mma.sync reaches the tensor cores with a simple register fragment layout.
+// 16-bit types have none of those limits: bf16 wgmma reads an MN-major B
+// operand (V as it lies), takes a register A operand (P straight from the
+// score accumulator) and needs no split, so the bf16 kernels
+// (attention_bf16.cu) are built on it. wgmma (operands split once per block,
+// not per warp) and TMA remain the levers for f32.
 //
 // Design (tiles chosen by timing, see the constants below):
 //  - forward (attn_fwd_kernel): one block per (8 warps x 16 queries, head,
@@ -51,9 +58,9 @@
 //    softmax: a running row max m and sum l, the output accumulator
 //    rescaled by exp(m_old - m_new) at each tile, and
 //    out = sum keep e v / (l (1 - rate)) at the end: the JAX p = e / sum e
-//    in exact arithmetic. With T = bf16, P cannot be rounded after
-//    normalisation, since l is known only at the end: the staged
-//    e = exp(s - m_run) is rounded instead. Saves m and l separately (not
+//    in exact arithmetic (at bf16, where P cannot be rounded after
+//    normalisation since l is known only at the end, the bf16 kernels round
+//    the staged e = exp(s - m_run) instead). Saves m and l separately (not
 //    lse = m + log l: in a row whose keys are all masked m is finfo.min,
 //    which absorbs log l, and exp(s - lse) would give 1, not 1 / S).
 //  - loads: 16-byte cp.async with zero-fill for rows past S, into double
@@ -101,7 +108,9 @@
 
 #include <type_traits>
 
-#include "philox.cuh"
+#include "attention.cuh"
+
+using namespace eeg_attn;
 
 namespace {
 
@@ -124,21 +133,6 @@ constexpr int smem_blocks(size_t smem) {
   return 233472 / (smem + 1024) < 3 ? (int)(233472 / (smem + 1024)) : 3;
 }
 
-struct Params {
-  const void *q, *k, *v, *o, *dout;
-  int64_t qs[3], ks[3], vs[3], ds[3];  // (b, h, s) strides in elements
-  const float* bias;                   // (B, S)
-  const int64_t* seed;                 // G elements, one per rows_per_seed batch rows
-  void *out, *dq, *dk, *dv;            // (B, S, H, D)
-  float* stats;                        // (2, B, H, S): row max m, row sum l
-  float* delta;                        // (B, H, S)
-  int B, H, S, rows_per_seed;  // rows_per_seed = B_all / G
-  int b0, h0, H_all;           // the block's first global row and head, the global heads
-  float scale, keep_prob, inv_keep;  // inv_keep = 1 / keep_prob
-  uint32_t threshold;
-  int dropout;
-};
-
 // Row strides of shared tiles, in elements of T, padded by 16 or 32 bytes
 // so that a warp's fragment loads (see warp_mma) fall in distinct banks. An
 // operand read along its rows (KContig: 8-byte loads of rows g, columns
@@ -151,32 +145,18 @@ template <typename T> constexpr int ld_strided(int cols) {
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // the value of x once cast to T (the JAX kernel's `.astype(dt)`)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// exp(x) as 2^(x log2 e) on the SFU; exp(-inf) = 0
-__device__ __forceinline__ float fast_exp(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
 // store a pair of neighbouring row elements
 __device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,9 +193,6 @@ template <int N> __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // Operands of warp_mma in shared memory: element (x, k), x the row of A or
@@ -348,39 +325,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld, int 
     const bool in = row < S;
     cp_async16(dst + r * LD + c, src + (int64_t)(in ? row : 0) * ld + c, in);
   }
-}
-
-// ---------------------------------------------------------------------------
-// The dropout mask
-// ---------------------------------------------------------------------------
-
-// The dropout mask: the one function the forward, both backward kernels and
-// the test hook call, so they agree bit for bit. One Philox4x32-10 call
-// serves the group of rows {i0, i0 + 8} x columns {j0, j0 + 1}, with
-// i0 = (i & ~15) | (i & 7) and j0 = j & ~1: the four elements one thread
-// holds in an m16n8 C fragment whose rows start at a multiple of 16. The
-// counter is ((b' H + h) S + i0) S + j0 (mask_base = (b' H + h) S, with
-// b, h and H the global row, head and head count (mask_base below) and
-// b' = b mod rows_per_seed, the row within its seed's group); element
-// (i, j) takes word 2 ((i >> 3) & 1) + (j & 1), its place c0..c3 in the
-// fragment. So the mask depends on (seed, b, h, i, j) alone, never on the
-// tiling. Bit e of the result is set when fragment element e is kept.
-// The seed and mask_base of launch row b, head h: global row b0 + b, head
-// h0 + h.
-__device__ __forceinline__ uint64_t mask_seed(const int64_t* seed, int b0, int b,
-                                              int rows_per_seed) {
-  return (uint64_t)seed[(b0 + b) / rows_per_seed];
-}
-__device__ __forceinline__ uint64_t mask_base_of(int b0, int b, int rows_per_seed, int H_all,
-                                                 int h0, int h, int S) {
-  return (uint64_t)(((b0 + b) % rows_per_seed) * H_all + h0 + h) * S;
-}
-
-__device__ __forceinline__ uint32_t keep_bits(uint64_t mask_base, int S, int i0, int j0,
-                                              uint64_t seed, uint32_t threshold) {
-  const uint4 w = philox4x32_10((mask_base + (uint64_t)i0) * (uint64_t)S + (uint64_t)j0, seed);
-  return (uint32_t)((w.x >> 8) < threshold) | ((uint32_t)((w.y >> 8) < threshold) << 1) |
-         ((uint32_t)((w.z >> 8) < threshold) << 2) | ((uint32_t)((w.w >> 8) < threshold) << 3);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,11 +474,7 @@ __global__ void __launch_bounds__(NT_DELTA) attn_delta_kernel(const Params p) {
   if (lane == 0) p.delta[row] = acc;
 }
 
-// The forward's row max m, 1 / row sum l and the pre-pass's delta of query
-// row i (placeholders past S, where nothing is used)
-struct RowStats {
-  float m, inv_l, delta;
-};
+// query row i's statistics (placeholders past S, where nothing is used)
 __device__ __forceinline__ RowStats row_stats(const Params& p, uint64_t head_base, int i) {
   if (i >= p.S) return {0.f, 0.f, 0.f};
   return {__ldg(p.stats + head_base + i),
@@ -868,8 +808,7 @@ int eeg_attn_fwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return fwd<float, 64>(p, st);
   if (dtype == 0 && D == 128) return fwd<float, 128>(p, st);
-  if (dtype == 1 && D == 64) return fwd<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && D == 128) return fwd<__nv_bfloat16, 128>(p, st);
+  if (dtype == 1) return fwd_bf16(p, D, st);
   return cudaErrorInvalidValue;
 }
 
@@ -891,8 +830,7 @@ int eeg_attn_bwd(int dtype, int D, int B, int H, int S, const void* q, int64_t q
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return bwd<float, 64>(p, st);
   if (dtype == 0 && D == 128) return bwd<float, 128>(p, st);
-  if (dtype == 1 && D == 64) return bwd<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && D == 128) return bwd<__nv_bfloat16, 128>(p, st);
+  if (dtype == 1) return bwd_bf16(p, D, st);
   return cudaErrorInvalidValue;
 }
 

@@ -110,20 +110,32 @@ def _attention(q, k, v, attn_bias, attn_drop, gen, layout=None, num_heads=None):
     multiplies f32 probabilities by V; the kernels, like the JAX kernel, round
     P to the input dtype first (one bf16 rounding under the compute cast).
     Under a ``layout`` the call is the block (rows b0 .., heads
-    model_rank H .. of ``num_heads``) of the global call.
+    model_rank H .. of ``num_heads``) of the global call; over G stacked
+    batches split over 'data' the rank's rows of each batch are a block of
+    their own, so each batch is its own call with its own seed.
     """
     B, H, S, D = q.shape
-    block = fused.Block()
-    if layout is not None:
-        block = fused.Block(layout.b0, layout.rows, layout.mesh.model_rank * H, num_heads)
-    if fused.attention_available(S, D):
-        bias = attn_bias[:, 0, 0, :]  # (B, S)
-        if gen is not None and attn_drop > 0.0:
-            return fused.fused_attention(q, k, v, bias, draw_seeds(gen, q.device), attn_drop,
-                                         block=block)
+    if not fused.attention_available(S, D):
+        return attention_unfused(q, k, v, attn_bias, attn_drop, gen, layout)
+    bias = attn_bias[:, 0, 0, :]  # (B, S)
+    rate = attn_drop if gen is not None else 0.0
+    if rate > 0.0:
+        seed = draw_seeds(gen, q.device)
+    else:
         seed = torch.zeros(1, dtype=torch.int64, device=q.device)
-        return fused.fused_attention(q, k, v, bias, seed, 0.0, block=block)
-    return attention_unfused(q, k, v, attn_bias, attn_drop, gen, layout)
+    if layout is None:
+        return fused.fused_attention(q, k, v, bias, seed, rate)
+    h0 = layout.mesh.model_rank * H
+    if layout.groups == 1 or layout.mesh.data == 1:
+        block = fused.Block(layout.b0, layout.groups * layout.rows, h0, num_heads)
+        return fused.fused_attention(q, k, v, bias, seed, rate, block=block)
+    block = fused.Block(layout.b0, layout.rows, h0, num_heads)
+    n = B // layout.groups
+    return torch.cat([
+        fused.fused_attention(q[i * n:(i + 1) * n], k[i * n:(i + 1) * n], v[i * n:(i + 1) * n],
+                              bias[i * n:(i + 1) * n], seed[i:i + 1] if rate > 0.0 else seed,
+                              rate, block=block)
+        for i in range(layout.groups)])
 
 
 def attention_unfused(q, k, v, attn_bias, attn_drop, gen, layout=None):

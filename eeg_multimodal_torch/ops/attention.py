@@ -347,7 +347,12 @@ def _launch_bwd(q, k, v, bias, seed, dropout_rate, out, stats, dout, block=Block
     if tuple(stats.shape) != (2, B, H, S) or stats.dtype != torch.float32 \
             or not stats.is_contiguous():
         raise ValueError("stats must be the forward's contiguous (2, B, H, S) float32")
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the backward's scratch: delta per row; for bf16 each row's (m, 1 / l,
+    # delta, 0), then the dropout mask's keep bits that the dQ kernel leaves
+    # for dK/dV, 512 bytes per head and pair of 64-row tiles
+    tiles = -(-S // 64)
+    n = B * H * (S * 4 + tiles * tiles * 128) if q.dtype == torch.bfloat16 else B * H * S
+    delta = torch.empty(n, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     err = _lib().eeg_attn_bwd(*_common_args(q, k, v, bias, seed, dropout_rate, block),
                               out.data_ptr(), stats.data_ptr(), dout.data_ptr(),

@@ -230,30 +230,43 @@ def all_reduce_data(tensors, mesh: Mesh):
 class Layout:
     """One forward on this rank: its rows are rows ``b0`` .. of the
     forward's ``rows`` global rows (split over 'data'), its column- and
-    row-parallel layers hold the rank's model shards.
+    row-parallel layers hold the rank's model shards. With ``groups`` G > 1
+    the forward runs G stacked batches of ``rows`` global rows each (the
+    paired step's batch stacked twice, each copy drawing from its own
+    generator of a group): the rank holds rows ``b0`` .. of each, batch
+    after batch.
 
     Every draw of the forward is drawn at its global shape from the same
-    generator on every rank, and the rank keeps its block (:meth:`draw`), so
-    the draws are those of the meshless forward whatever the layout; the
-    kernels draw their blocks of the global call themselves (the attention
-    kernels' ``Block``, the DP kernels' ``r0``)."""
+    generator on every rank (one per stacked batch), and the rank keeps its
+    block (:meth:`draw`), so the draws are those of the meshless forward
+    whatever the layout; the kernels draw their blocks of the global call
+    themselves (the attention kernels' ``Block``, the DP kernels' ``r0``)."""
 
     mesh: Mesh
     b0: int
     rows: int
+    groups: int = 1
 
     @staticmethod
-    def of(mesh: Mesh, n: int) -> "Layout":
-        """The layout of a forward over ``n`` global rows on this rank."""
-        return Layout(mesh, rows_of(mesh, n)[0], n)
+    def of(mesh: Mesh, n: int, groups: int = 1) -> "Layout":
+        """The layout of a forward over ``groups`` stacked batches of ``n``
+        global rows each on this rank."""
+        return Layout(mesh, rows_of(mesh, n)[0], n, groups)
 
     @property
     def model(self) -> int:
         return self.mesh.model
 
+    @property
+    def local(self) -> int:
+        """The rank's rows of each stacked batch."""
+        return self.rows // self.mesh.data
+
     def take(self, x):
-        """The rank's rows of the global rows ``x``."""
-        return x[self.b0:self.b0 + self.rows // self.mesh.data]
+        """The rank's rows of the global rows ``x`` (of each stacked batch)."""
+        if self.groups == 1:
+            return x[self.b0:self.b0 + self.local]
+        return torch.cat([part[self.b0:self.b0 + self.local] for part in x.chunk(self.groups)])
 
     def local_rows(self, batch):
         """The rank's rows of every array of a global batch."""
@@ -261,6 +274,8 @@ class Layout:
 
     def gather_rows(self, x):
         """The global rows of ``x`` from every data rank's (differentiable)."""
+        if self.groups != 1:
+            raise ValueError("rows of stacked batches are gathered batch by batch")
         if self.mesh.data == 1:
             return x
         return _GatherRows.apply(x, self.b0, self.rows, self.mesh.data_group)
@@ -268,10 +283,19 @@ class Layout:
     def draw(self, fn: Callable, shape, gen, model_axis: Optional[int] = None):
         """``fn(global_shape, gen)`` sliced to this rank's block of ``shape``:
         its rows of the leading (batch) axis and, where ``model_axis`` is
-        given, its model shard of that axis. A group of generators is not
-        taken: its rows are groups of their own."""
-        if gen is not None and not isinstance(gen, torch.Generator):
-            raise ValueError("a draw under a mesh takes one generator, not a group")
+        given, its model shard of that axis. With G stacked batches ``gen``
+        is a group of G generators, each drawing its batch's global rows."""
+        if self.groups == 1:
+            if gen is not None and not isinstance(gen, torch.Generator):
+                raise ValueError("a draw under a mesh takes one generator, not a group")
+            return self._draw_one(fn, shape, gen, model_axis)
+        if isinstance(gen, torch.Generator) or len(gen) != self.groups:
+            raise ValueError(f"a draw over {self.groups} stacked batches takes a group of "
+                             f"{self.groups} generators")
+        part = (shape[0] // self.groups, *shape[1:])
+        return torch.cat([self._draw_one(fn, part, g, model_axis) for g in gen])
+
+    def _draw_one(self, fn, shape, gen, model_axis):
         whole = list(shape)
         whole[0] = self.rows
         if model_axis is not None:

@@ -54,17 +54,9 @@ def shard_trainer(trainer: Trainer, mesh: Optional[Mesh] = None) -> Mesh:
     of the world, :func:`mesh.factorize`d), re-init its optimizer states from
     the shards and set ``trainer.mesh``; returns the mesh. Every rank calls
     it with the same whole params (the same seed, or the same weights).
-
-    The faithful step and the single-optimizer step run under any mesh; the
-    fast phase modes run their two phases' forwards outside ``forward`` and
-    are refused on more than one rank."""
+    Every step mode runs under any mesh."""
     if mesh is None:
         mesh = mesh_mod.make_mesh()
-    cfg = trainer.train_cfg
-    if mesh.size > 1 and (cfg.share_phase_dropout or cfg.paired_phase_encode):
-        raise NotImplementedError(
-            "the fast phase modes under a mesh of more than one rank; the faithful step and "
-            "the sweep's fast modes (members over the data axis) run")
     trainer.params = shard_mod.shard_params(mesh, trainer.params)
     steps = trainer.steps
     steps.mesh = mesh

@@ -88,8 +88,9 @@ class MemberSteps(StepFunctions):
         return super().forward(params, fusion.repeat_batch(batch, self.members), epsilon, hard,
                                gen, train, dp_noise)
 
-    def encode(self, params, batch, gen, train):
-        return super().encode(params, fusion.repeat_batch(batch, self.members), gen, train)
+    def encode(self, params, batch, gen, train, layout=None):
+        return super().encode(params, fusion.repeat_batch(batch, self.members), gen, train,
+                              layout)
 
     def objective(self, loss):
         """The sum of the members' losses: each member's gradient is its own."""

@@ -255,9 +255,24 @@ class StepFunctions:
         rank holds its rows' part (the list itself without a mesh)."""
         return grads if self.mesh is None else sharding.all_reduce_data(grads, self.mesh)
 
-    def encode(self, params, batch, gen, train):
-        """The raw (B, F) concat of ``batch``'s rows (``fusion.encode_features``)."""
-        return fusion.encode_features(params, batch, self.fusion_cfg, gen, train)
+    def encode(self, params, batch, gen, train, layout=None):
+        """The raw (B, F) concat of ``batch``'s rows (``fusion.encode_features``);
+        under a mesh ``batch`` holds the rank's rows of ``layout``."""
+        return fusion.encode_features(params, batch, self.fusion_cfg, gen, train, layout)
+
+    def head(self, params, feature, n, epsilon, hard, gen, noise):
+        """The head's logits (``fusion.apply_head``, in training) over the
+        raw features of a batch of ``n`` rows; under a mesh ``feature`` holds
+        the rank's rows, and the logits of every row are gathered, as in
+        :meth:`forward`."""
+        if self.mesh is None:
+            return fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen,
+                                     train=True, dp_noise=noise)
+        layout = sharding.Layout.of(self.mesh, n)
+        noise = None if noise is None else layout.take(noise)
+        logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen,
+                                   train=True, dp_noise=noise, layout=layout)
+        return layout.gather_rows(logits)
 
     def loss_of(self, logits, labels, weight):
         """(loss, acc, pred, logits) of a forward's logits: each of ``lead``
@@ -382,8 +397,7 @@ class StepFunctions:
         (cast to the compute dtype, as the whole tree is in the faithful
         step)."""
         params = {**pc, "DP": dp.to(self.compute_dtype)}
-        logits = fusion.apply_head(params, feature, self.fusion_cfg, epsilon, hard, gen,
-                                   train=True, dp_noise=noise)
+        logits = self.head(params, feature, batch["labels"].shape[0], epsilon, hard, gen, noise)
         return self.loss_of(logits, batch["labels"], weight)[:2]
 
     def _two_phases(self, params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
@@ -395,13 +409,14 @@ class StepFunctions:
         dp_alias = params["DP"].detach().requires_grad_()
         loss1 = self._head_loss(pc, dp_alias, f1.detach(), batch, weight, epsilon, False, g1,
                                 dp_noise[0])[0]
-        dp_os = self.dp_opt.update(
-            [params["DP"]], list(torch.autograd.grad(self.objective(loss1), [dp_alias])), dp_os)
+        g_dp = self.sync_grads(list(torch.autograd.grad(self.objective(loss1), [dp_alias])))
+        dp_os = self.dp_opt.update([params["DP"]], g_dp, dp_os)
         if replay is not None:
             set_state(g2, replay)
         loss, acc = self._head_loss(pc, params["DP"].detach(), f2, batch, weight, epsilon, True,
                                     g2, dp_noise[1])
-        grads = [g.float() for g in torch.autograd.grad(self.objective(loss), aliases)]
+        grads = self.sync_grads([g.float() for g in torch.autograd.grad(self.objective(loss),
+                                                                         aliases)])
         model_os = self.model_opt.update(masters, grads, model_os)
         return dp_os, model_os, loss.detach(), acc.detach()
 
@@ -411,9 +426,14 @@ class StepFunctions:
         the features never read ``DP``, and under shared dropout both phases
         draw the same ones, so phase 2's encoder gradient is the backward of
         the one forward. The generator's state after the encoder is restored
-        before phase 2, so its head draws phase 1's DP noise again."""
+        before phase 2, so its head draws phase 1's DP noise again. Under a
+        mesh the encoder and both heads run on the rank's rows."""
         pc, aliases, masters = self._model_tree(params)
-        feature = self.encode(pc, batch, gen, dropout)
+        if self.mesh is None:
+            feature = self.encode(pc, batch, gen, dropout)
+        else:
+            layout = sharding.Layout.of(self.mesh, batch["labels"].shape[0])
+            feature = self.encode(pc, layout.local_rows(batch), gen, dropout, layout)
         return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feature,
                                 feature, batch, weight, epsilon, gen, gen, dp_noise,
                                 replay=get_state(gen))
@@ -426,13 +446,20 @@ class StepFunctions:
         ``DP``, and phase 1 updates only ``DP``. Phase 1 takes ``dDP`` on
         half 0, phase 2 backs up through half 1 (a zero cotangent on half 0,
         the slice's gradient). Over stacked members each member's rows are
-        its own pair (:meth:`pair_generators`)."""
+        its own pair (:meth:`pair_generators`). Under a mesh each half holds
+        the rank's rows of the batch, drawn as the meshless halves draw them
+        (a layout of two stacked batches)."""
         if self.train_cfg.share_phase_dropout:
             set_state(g2, get_state(g1))
         pc, aliases, masters = self._model_tree(params)
         B = weight.shape[0]
-        pair = {k: torch.cat([v, v]) for k, v in batch.items() if k != "labels"}
-        feats = self.encode(pc, pair, self.pair_generators(g1, g2), dropout)
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        layout = None
+        if self.mesh is not None:
+            layout = sharding.Layout.of(self.mesh, B, groups=2)
+            inputs, B = sharding.Layout.of(self.mesh, B).local_rows(inputs), layout.local
+        pair = {k: torch.cat([v, v]) for k, v in inputs.items()}
+        feats = self.encode(pc, pair, self.pair_generators(g1, g2), dropout, layout)
         feats = feats.reshape(-1, 2, B, feats.shape[-1])  # (models, phase, B, F)
         f1, f2 = (feats[:, i].reshape(-1, feats.shape[-1]) for i in range(2))
         return self._two_phases(params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,

@@ -18,6 +18,7 @@ from eeg_multimodal_tpu.models import bert as JB
 from eeg_multimodal_tpu.ops import attention as JA
 from eeg_multimodal_torch.models import bert as TB
 from eeg_multimodal_torch.ops import attention as TA
+from eeg_multimodal_torch.ops.philox import philox_words
 from philox_ref import MASK32, philox_py
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -203,6 +204,116 @@ def test_each_philox_call_serves_exactly_its_four_elements(S):
     np.testing.assert_array_equal(j, j0 + (word & 1))
     pairs = set(zip((i0 * S + j0).ravel().tolist(), word.ravel().tolist()))
     assert len(pairs) == S * S
+
+
+def wgmma_accumulator(N):
+    """The m64nN f32 accumulator of a warpgroup (PTX ISA, wgmma D fragment):
+    (warp, lane, register) -> (row, column) as int arrays of shape (4, 32,
+    N / 2). Warp w, lane t: rows 16 w + t / 4 and + 8, and in each 8-column
+    group n columns 8 n + 2 (t mod 4) and + 1; register 4 n + e holds row
+    + 8 (e >> 1), column + (e & 1)."""
+    w = np.arange(4)[:, None, None]
+    t = np.arange(32)[None, :, None]
+    x = np.arange(N // 2)[None, None, :]
+    n, e = x // 4, x % 4
+    return 16 * w + t // 4 + 8 * (e >> 1), 8 * n + 2 * (t % 4) + (e & 1)
+
+
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_each_wgmma_accumulator_group_is_one_philox_call(N):
+    """In every tile of a query-major score matrix (rows from a multiple of
+    64, columns from a multiple of N, S = 197 for ragged edges), a thread's
+    four registers of an 8-column group are one Philox call of
+    ``mask_groups``, register e its word e: the forward and dQ kernels call
+    keep_bits once per group and read bit e for register e."""
+    S = 197
+    i0, j0, word = (x.numpy() for x in TA.mask_groups(S))
+    rows, cols = wgmma_accumulator(N)
+    seen = set()
+    for r0 in range(0, S, 64):
+        for c0 in range(0, S, N):
+            i, j = r0 + rows, c0 + cols
+            inside = (i < S) & (j < S)
+            ii, jj = np.minimum(i, S - 1), np.minimum(j, S - 1)
+            call = i0[ii, jj] * S + j0[ii, jj]
+            for n in range(N // 8):
+                group = call[:, :, 4 * n:4 * n + 4]
+                whole = inside[:, :, 4 * n:4 * n + 4].all(-1)
+                # one call per thread and group, its words in register order
+                assert (group[whole] == group[whole][:, :1]).all()
+                np.testing.assert_array_equal(word[ii, jj][:, :, 4 * n:4 * n + 4][whole],
+                                              np.broadcast_to(np.arange(4), (whole.sum(), 4)))
+            seen.update(zip(call[inside].tolist(), word[ii, jj][inside].tolist()))
+    assert len(seen) == S * S  # every element drawn, each (call, word) once
+
+
+def mask_byte(bh, i0, j0, S):
+    """``mask_byte`` of csrc/attention_bf16.cu: where the byte of the Philox
+    groups of rows i0, i0 + 1 (i0 even, bit 3 clear) and columns {j0, j0 +
+    1} lies in the backward's mask bytes."""
+    tiles, jt = -(-S // 64), j0 & 63
+    pair_row = bh * tiles * 16 + (i0 >> 4) * 4 + ((i0 & 7) >> 1)
+    return (pair_row * tiles + (j0 >> 6)) * 32 + ((jt >> 1) & 3) * 8 + (jt >> 3)
+
+
+def dkdv_mask_model(seed, B, H, S, rate):
+    """The mask as the dK/dV kernel reads it, modelled thread by thread.
+    The dQ kernel's threads (a block of 64 rows; warp w, lane t: rows i0 =
+    16 w + t / 4 and + 8; in each 64-key tile, columns 8 n + 2 (t mod 4) and
+    + 1) draw one Philox call per 8-column group, keep bit e for word e, and
+    the thread of even t / 4 stores its nibbles ORed with those of lane
+    t ^ 4 (row i0 + 1) shifted by 4 as one 8-byte word at the byte of
+    column n = 0. A dK/dV thread (warp w, lane t: keys j = 16 w + t / 4 and
+    + 8) reads, for queries a, a + 1, a + 8, a + 9 (a = q16 + 2 (t mod 4)),
+    the byte of rows a, a + 1 and columns {j & ~1, +1}. Returns the
+    (B, H, S, S) keep mask [b, h, query, key]."""
+    thr = TA.keep_threshold(rate)
+    tiles = -(-S // 64)
+    buf = np.zeros(B * H * tiles * tiles * 512, np.uint8)
+    w = np.arange(4)[:, None]
+    t = np.arange(32)[None, :]
+    for b in range(B):
+        for h in range(H):
+            bh = b * H + h
+            for q0 in range(0, tiles * 64, 64):  # a dQ block
+                i0 = q0 + 16 * w + t // 4  # (4, 32)
+                for k0 in range(0, tiles * 64, 64):  # its key tiles
+                    nibbles = np.zeros((4, 32), np.uint64)
+                    for n in range(8):
+                        j0 = k0 + 8 * n + 2 * (t % 4)
+                        words = philox_words(torch.from_numpy((bh * S + i0) * S + j0),
+                                             seed).numpy()
+                        nib = sum(((words[..., e] >> 8) < thr).astype(np.uint64) << e
+                                  for e in range(4))
+                        nibbles |= nib << np.uint64(8 * n)
+                    word = nibbles | (nibbles[:, np.arange(32) ^ 4] << np.uint64(4))
+                    for ww in range(4):
+                        for tt in range(0, 32):
+                            if (tt // 4) % 2 == 0:
+                                at = mask_byte(bh, int(i0[ww, tt]), k0 + 2 * (tt % 4), S)
+                                buf[at:at + 8] = np.frombuffer(
+                                    np.uint64(word[ww, tt]).tobytes(), np.uint8)
+    keep = np.zeros((B, H, S, S), bool)
+    for b in range(B):
+        for h in range(H):
+            for j in range(S):
+                for a in [x for x in range(0, S, 2) if x & 8 == 0]:
+                    byte = int(buf[mask_byte(b * H + h, a, j & ~1, S)]) >> (j & 1)
+                    bits = (byte & 1) | ((byte >> 3) & 2) | (byte & 4) | ((byte >> 3) & 8)
+                    for c, i in enumerate((a, a + 1, a + 8, a + 9)):
+                        if i < S:
+                            keep[b, h, i, j] = (bits >> c) & 1
+    return keep
+
+
+@pytest.mark.parametrize("S", [37, 80])
+def test_the_dq_kernels_mask_bytes_give_dkdv_keep_mask_plain(S):
+    """The dK/dV kernel, which holds the transposed tile and draws no Philox
+    call, reads from the dQ kernel's bytes exactly ``keep_mask_plain``'s
+    mask, every element."""
+    seed, rate = 2 ** 35 + 11, 0.1
+    np.testing.assert_array_equal(dkdv_mask_model(seed, 2, 2, S, rate),
+                                  TA.keep_mask_plain(seed, 2, 2, S, rate).numpy())
 
 
 def test_keep_mask_plain_is_the_grouped_philox_of_each_element():

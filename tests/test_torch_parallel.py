@@ -39,7 +39,6 @@ from eeg_multimodal_torch.ops import attention as TA
 from eeg_multimodal_torch.ops import dp_fused as K
 from eeg_multimodal_torch.parallel import mesh as TMESH
 from eeg_multimodal_torch.parallel import sharding as TSH
-from eeg_multimodal_torch.parallel.train import shard_trainer
 from eeg_multimodal_torch.train import checkpoint as TCK
 from eeg_multimodal_torch.train.dpsgd_trainer import DPSGDTrainer
 from eeg_multimodal_torch.train.sweep import SweepMember, SweepRunner
@@ -244,12 +243,24 @@ FIT_CASES = [
     ((2, 1), {"fused_dp_kernel": True}, {}),
     ((2, 2), {}, {}),
     ((2, 2), {"fused_dp_kernel": True}, {"adam_mu_dtype": "bfloat16", "adam_nu_dtype": "bfloat16"}),
+    # the fast phase modes: features encoded once (model shards), the faithful
+    # step replaying phase 1's draws (rows), the paired 2B forward (rows)
+    ((1, 2), {}, {"share_phase_dropout": True}),
+    ((2, 1), {"fused_dp_kernel": True},
+     {"share_phase_dropout": True, "reuse_phase_features": False}),
+    ((2, 1), {"fused_dp_kernel": True}, {"paired_phase_encode": True}),
 ]
 
 
 def fit_id(case):
     shape, fc, tc = case
-    return mesh_id(shape) + ("-fused" if fc else "-composed") + ("-bf16moments" if tc else "")
+    mode = ""
+    if tc.get("paired_phase_encode"):
+        mode = "-paired"
+    elif tc.get("share_phase_dropout"):
+        mode = "-shared" if tc.get("reuse_phase_features", True) else "-shared-noreuse"
+    return (mesh_id(shape) + ("-fused" if fc else "-composed")
+            + ("-bf16moments" if "adam_mu_dtype" in tc else "") + mode)
 
 
 @pytest.mark.parametrize("case", FIT_CASES, ids=fit_id)
@@ -386,9 +397,6 @@ def test_sweep_under_a_mesh_equals_the_meshless_sweep(tmp_path, shape):
 
 
 def test_mesh_refusals():
-    tr = Trainer(W.config(), TrainConfig(share_phase_dropout=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="fast phase modes under a mesh"):
-        shard_trainer(tr, TMESH.Mesh(1, 2))
     with pytest.raises(ValueError, match="do not split over 3 data ranks"):
         TSH.rows_of(TMESH.Mesh(3, 1), 8)
 
