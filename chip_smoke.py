@@ -6,8 +6,8 @@
 Builds the port's CUDA C++ kernels from this checkout, one nvcc process
 per source, started together (the DP block, forward and backward;
 attention, forward, backward on the tensor cores and the dropout-mask test
-hook: f32 on mma.sync, bf16 on wgmma with TMA loads, at D = 64 and 128 and
-at sequence lengths no multiple of the tiles), and holds each against its
+hook: f32 as 3xTF32 on wgmma, bf16 on wgmma with TMA loads, at D = 64 and
+128 and at sequence lengths no multiple of the tiles), and holds each against its
 plain PyTorch version: the DP forward bit for bit where the card's math
 library allows (within 1e-5 in any case) with ``laplace_plain``'s noise, the
 attention mask bit for bit against ``keep_mask_plain``, also with a seed
@@ -172,8 +172,8 @@ TF32X3_OPS_PER_S = 495e12 / 3
 OPS_PER_ELEM = {"dp_fwd": 80, "dp_bwd": 100}
 SOURCES = {"dp_fwd": "eeg_multimodal_torch/csrc/dp_block.cu",
            "dp_bwd": "eeg_multimodal_torch/csrc/dp_block.cu",
-           "attn_fwd": "eeg_multimodal_torch/csrc/attention.cu",
-           "attn_bwd": "eeg_multimodal_torch/csrc/attention.cu"}
+           "attn_fwd": "eeg_multimodal_torch/csrc/attention_f32.cu",
+           "attn_bwd": "eeg_multimodal_torch/csrc/attention_f32.cu"}
 # the bf16 attention kernels (wgmma + TMA) have a source of their own
 BF16_SOURCE = "eeg_multimodal_torch/csrc/attention_bf16.cu"
 ROUTES = {"dp_fwd": "cuda", "dp_bwd": "cuda", "attn_fwd": "cuda", "attn_bwd": "cuda"}
@@ -474,7 +474,8 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     (B, 12, 80, 64) f32 for each B of ``dpsgd_bs`` (``dpsgd_batches``: the
     windows at the smoke's and the paper's rows, and the batched eval),
     and (8, 12, S, 64) for each S of ``zoo_seqs`` (the zoo phase's text
-    lengths), in f32 and bf16, and at smaller ones; at each DP-SGD window
+    lengths), in f32 and bf16, and at smaller ones (the tiles' edges: S = 32,
+    50, 65, 150, 197 and D = 128 at S = 65 to 512); at each DP-SGD window
     also through autograd with an output gradient the kernels' 16-byte
     loads cannot read, which ``vector_loadable`` copies.
     Returns the max errors, both dropout rates together, as
@@ -491,6 +492,15 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
              (8, 12, 128, 64, torch.float32), (8, 12, 512, 64, torch.float32),
              (1, 2, 512, 128, torch.float32), (2, 3, 80, 64, torch.bfloat16),
              (8, 12, 80, 64, torch.bfloat16), (8, 12, 512, 64, torch.bfloat16)]
+    # the f32 kernels' tiles (attention_f32.cu): S no multiple of the 32-key
+    # and 32-query tiles or of the two-warpgroup blocks' 128 rows, and S
+    # whose two-warpgroup dQ blocks reach past the mask bytes' 64-row tiles
+    # (32, 50, 150); D = 128, its own tiles
+    cases += [(2, 3, 65, 64, torch.float32), (2, 3, 197, 64, torch.float32),
+              (2, 3, 32, 64, torch.float32), (2, 3, 50, 64, torch.float32),
+              (2, 3, 150, 64, torch.float32), (2, 3, 65, 128, torch.float32),
+              (2, 3, 128, 128, torch.float32), (2, 3, 197, 128, torch.float32),
+              (2, 3, 256, 128, torch.float32)]
     # the bf16 kernels' tiles: 64 rows a block, 64 keys (32 queries in dK/dV)
     # a tile, D in two 64-column panels at 128, S no multiple of 64
     cases += [(8, 12, 128, 64, torch.bfloat16), (8, 12, 256, 64, torch.bfloat16),
@@ -4343,6 +4353,7 @@ def main():
 
     phase("timing: attention kernels, f32, p = 0.1 (the gate question at S = 80 and 128)")
 
+    f32_device = {}
     for S in (80, 128, 512):
         B, H, D = 8, 12, 64
         qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev)
@@ -4398,6 +4409,7 @@ def main():
             "fwd plain": sum(device_us(torch, plain_fwd, 10).values()),
             "bwd plain": sum(device_us(torch, plain_bwd, 10).values()),
         }
+        f32_device[S] = (dev_t["fwd"], dev_t["bwd"])
         bounds = {name: attn_bound_ms(name, B, H, S, D, 4) for name in ("attn_fwd", "attn_bwd")}
         simt = {name: attn_bound_ms(name, B, H, S, D, 4, F32_OPS_PER_S)[0]
                 for name in ("attn_fwd", "attn_bwd")}
@@ -4418,6 +4430,9 @@ def main():
                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                     "library_ms": t[key + " sdpa"],
                 })
+
+    print("  f32 device time (fwd, bwd): " + "; ".join(
+        f"S = {S} {f:.1f} / {b:.1f} us" for S, (f, b) in f32_device.items()))
 
     phase("timing: attention kernels, bf16, p = 0.1 (path 3's S = 80, and S = 512)")
     for S in (80, 512):

@@ -4,10 +4,10 @@
 // Replaces, at bf16, the JAX package's Pallas TPU kernels in
 // ops/attention.py: `_fwd_kernel` (attn_fwd_bf16_kernel here) and
 // `_bwd_kernel` (attn_delta_bf16_kernel + attn_dkdv_bf16_kernel +
-// attn_dq_bf16_kernel). attention.cu holds the f32 kernels, the mask hook
-// and the C interface, which sends every bf16 call here (no other bf16
-// kernel exists). The function is the f32 kernels' at bf16 (attention.cu's
-// header): f32 scores and softmax, e = exp(s - m_run) rounded to bf16 before
+// attn_dq_bf16_kernel). attention.cu holds the mask hook and the C
+// interface, which sends every bf16 call here (no other bf16 kernel
+// exists). The function is the f32 kernels' (attention_f32.cu) at bf16
+// (attention.cu's header): f32 scores and softmax, e = exp(s - m_run) rounded to bf16 before
 // P.V (the online form of the JAX kernel's rounded p_drop), dO, P_drop and
 // dS rounded to bf16 before their products, f32 accumulation; the same
 // dropout mask, bit for bit (mask_words, attention.cuh).
@@ -39,7 +39,7 @@
 //    (Q K^T, dO V^T, K Q^T, V dO^T: both operands K-major). The m64nN
 //    accumulator holds, in each warp, rows 16 w + lane / 4 and + 8 and, in
 //    each 8-column group, columns 2 (lane % 4) and + 1: the m16n8 C fragment
-//    of the mma.sync kernels. So the query-major score tiles (forward, dQ)
+//    of mma.sync. So the query-major score tiles (forward, dQ)
 //    draw one Philox call (mask_words) per thread and 8-column group, word e
 //    for register e, and once rounded to bf16 an accumulator is the A
 //    register fragment of the next wgmma: P (forward), dS (dQ), P_drop^T and
@@ -68,6 +68,7 @@
 #include <atomic>
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace eeg_attn {
 namespace {
@@ -76,206 +77,6 @@ constexpr int WG = 128;     // threads of a warpgroup
 constexpr int STAGES = 2;   // the ring of K / V (forward, dQ) or Q / dO (dK/dV) tiles
 constexpr int BK_FWD = 64;  // keys per tile of the forward and of dQ
 constexpr int NT_DELTA = 256;
-
-// ---------------------------------------------------------------------------
-// Shared memory, mbarriers, TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// the dynamic shared memory rounded up to 1024 bytes: the 128-byte swizzle
-// repeats every 8 rows of 128 bytes, and the descriptors assume its phase
-// starts at each tile
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed. A wait of ~17 s
-// (2^35 cycles) traps: a fault of the pipeline becomes a launch error, not
-// a hung card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  long long t0 = 0;
-  for (int spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 35)) {
-      asm volatile("trap;");
-    }
-  }
-}
-
-// One TMA copy of a box (64 columns x the map's rows, at column `col`, row
-// `row` of head h, batch row b) into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(h),
-      "r"(b)
-      : "memory");
-}
-
-// A tile of R rows x D columns: D / 64 panels of R rows of 128 bytes
-template <int R, int D> __host__ __device__ constexpr int tile_bytes() { return R * D * 2; }
-template <int R, int D>
-__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row, int h, int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_load(dst + c * R * 128, map, bar, 64 * c, row, h, b);
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from touching registers a wgmma still reads or writes
-// before its wait: each is "rewritten" here, after the wait
-template <int N> __device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int K> __device__ __forceinline__ void hold(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-}
-template <int N> __device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (PTX ISA, wgmma matrix
-// descriptor), each in 16-byte units
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major operand: rows row0 .. of a tile of R rows, reduction columns
-// k .. k + 15 (k a multiple of 16). Within a 128-byte row, 16 columns are 32
-// bytes on: the swizzle is applied to the whole address, so the start moves
-// by 32; 8-row groups are 1024 bytes apart.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int row0, int k) {
-  return smem_desc(tile + (k / 64) * R * 128 + row0 * 128 + (k % 64) * 2, 16, 1024);
-}
-// MN-major B operand whose reduction index is the tile's row: rows k ..
-// k + 15 of a tile of R rows, its N the tile's D columns, 64-column panels
-// R * 128 bytes apart (the leading offset), 8 rows 1024 bytes (the stride)
-template <int R> __device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int k) {
-  return smem_desc(tile + k * 128, R * 128, 1024);
-}
-
-// d (m64nN f32) += A B, k16, bf16. wgmma_ss: A and B K-major descriptors;
-// wgmma_rs: A four registers of bf16 pairs, B an MN-major descriptor.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 // a bf16 pair (lo in the low half), rounded to nearest: the A fragment's
 // element order
@@ -346,42 +147,9 @@ __device__ __forceinline__ void start(const Ring<R, D>& ring, uint64_t* once, ui
   __syncthreads();
 }
 
-// kept(word, threshold) as one compare: (word >> 8) < threshold is word <
-// threshold * 256, which fits in 32 bits at any rate above 0 (the only
-// rates that draw; without dropout the words are 0 and threshold8 all ones)
-__device__ __forceinline__ bool kept8(uint32_t word, uint32_t threshold8) {
-  return word < threshold8;
-}
-
-// word e (0..3) of a Philox call: the word of fragment element e
-__device__ __forceinline__ uint32_t word(const uint4& w, int e) {
-  return e == 0 ? w.x : e == 1 ? w.y : e == 2 ? w.z : w.w;
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
-
-// s * scale + bias[key] of the thread's score elements of the tile at key
-// k0, in place, and the row maxima of its two rows into mt; with EDGE the
-// keys past S get -inf
-template <int BK, bool EDGE>
-__device__ __forceinline__ void scale_scores(float (&s)[BK / 2], const float* bias, int k0,
-                                             int t, int S, float scale, float (&mt)[2]) {
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = k0 + n * 8 + 2 * t + c;
-      const float bj = !EDGE || j < S ? __ldg(bias + j) : 0.f;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float& x = s[4 * n + 2 * r + c];
-        x = EDGE && j >= S ? -INFINITY : x * scale + bj;
-        mt[r] = fmaxf(mt[r], x);
-      }
-    }
-}
 
 template <int D>
 struct FwdCfg {
@@ -542,49 +310,6 @@ __global__ void __launch_bounds__(NT_DELTA) attn_delta_bf16_kernel(const Params 
         make_float4(p.stats[row], 1.f / p.stats[rows + row], acc, 0.f);
 }
 
-// The dropout mask, from the dQ kernel to the dK/dV kernel: the scratch
-// after the rows' statistics holds, for every pair of Philox groups of
-// rows i0 and i0 + 1 (i0 even, bit 3 clear) and columns {j0, j0 + 1}, one
-// byte: the keep bits of row i0's call in the low nibble, of row i0 + 1's
-// in the high one (bit e of a nibble: word e kept). Bytes lie by (b, h),
-// pair row (4 per 16 rows, 16 per 64), 64-key tile, then in a tile's 32
-// bytes (t, n) at t * 8 + n for columns j0 = 8 n + 2 t of the tile: the
-// bytes a dQ thread writes for one tile are one 8-byte word.
-__device__ __forceinline__ uint8_t* mask_bytes(const Params& p) {
-  return reinterpret_cast<uint8_t*>(p.delta) + (int64_t)p.B * p.H * p.S * 16;
-}
-__device__ __forceinline__ int64_t mask_byte(const Params& p, int bh, int i0, int j0) {
-  const int tiles = (p.S + 63) / 64, jt = j0 & 63;
-  const int64_t pair_row = (int64_t)bh * tiles * 16 + (i0 >> 4) * 4 + ((i0 & 7) >> 1);
-  return (pair_row * tiles + (j0 >> 6)) * 32 + ((jt >> 1) & 3) * 8 + (jt >> 3);
-}
-
-// query row i's statistics from the pre-pass (placeholders past S, where
-// nothing is used)
-__device__ __forceinline__ RowStats stats_of(const Params& p, uint64_t head_base, int i) {
-  if (i >= p.S) return {0.f, 0.f, 0.f};
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p.delta) + head_base + i);
-  return {r.x, r.y, r.z};
-}
-
-// p, p_drop and dS of one score element from the score s, dP and the
-// query row's statistics: returns p_drop and dS, 0 outside S x S (rounded
-// to bf16 when packed)
-__device__ __forceinline__ void softmax_grad(const Params& p, float s, float dp, float bias,
-                                             const RowStats& r, bool keep, bool in, float& pd,
-                                             float& ds) {
-  pd = ds = 0.f;
-  if (!in) return;
-  const float pr = fast_exp(s * p.scale + bias - r.m) * r.inv_l;
-  float dpm = dp, prd = pr;
-  if (p.dropout) {
-    prd = keep ? pr * p.inv_keep : 0.f;
-    dpm = keep ? dpm * p.inv_keep : 0.f;
-  }
-  pd = prd;
-  ds = pr * (dpm - r.delta);
-}
-
 template <int D>
 struct DqCfg {
   static constexpr int BK = BK_FWD;
@@ -688,16 +413,6 @@ __global__ void __launch_bounds__(WG, 3)
     for (int d = 0; d < D / 8; ++d)
       dst[d * 4 + t] = pack(dq[4 * d + 2 * r] * p.scale, dq[4 * d + 2 * r + 1] * p.scale);
   }
-}
-
-// The keep bits of a thread's elements of the transposed score tile S^T
-// (keys x queries) in one 16-query block, from the dQ kernel's bytes: key
-// j and queries a, a + 1, a + 8, a + 9 (a = q16 + 2t), bit c for the c-th.
-// Rows a and a + 1 are one byte's low and high nibbles; a + 8 is word 2 of
-// row a's call.
-__device__ __forceinline__ uint32_t dkdv_keep(const Params& p, int bh, int a, int j) {
-  const uint32_t byte = __ldg(mask_bytes(p) + mask_byte(p, bh, a, j & ~1)) >> (j & 1);
-  return (byte & 1u) | ((byte >> 3) & 2u) | (byte & 4u) | ((byte >> 3) & 8u);
 }
 
 template <int D>
@@ -819,30 +534,6 @@ __global__ void __launch_bounds__(WG, D == 64 ? 3 : 2)
 // Host side: tensor maps and launches
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found once through the runtime
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The map of a (B, H, S, D) bf16 view with (b, h, s) strides `st` (elements,
 // multiples of 8 where the axis is longer than 1: the wrapper's check),
 // read in boxes of 64 columns x `rows` rows of one head and batch row
@@ -862,20 +553,6 @@ bool tensor_map(CUtensorMap* map, const void* ptr, const int64_t* st, const Para
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Allow `smem` bytes of dynamic shared memory to `kernel`, once per device
-// (bit d of `done`): the attribute call stays off the per-launch path
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem, std::atomic<uint32_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (dev & 31);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
 }
 
 template <int D>

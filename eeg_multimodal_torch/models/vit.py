@@ -11,7 +11,7 @@ is (W, 3, P, P)), so ``params_from_jax`` copies it leaf by leaf;
 ``from_clip_state_dict`` reads an OpenAI CLIP state dict.
 
 Self-attention goes through the attention kernel (``ops/attention.py``,
-``attn_fwd_kernel`` on the card) with a zero key bias, a zero seed and rate
+``attn_fwd_f32_kernel`` on the card at f32) with a zero key bias, a zero seed and rate
 0, where ``attention_available`` says so (the ViT-B head width, 64); the JAX
 package runs einsum attention here. q, k and v are strided views of the
 packed (B, S, 3W) projection, as BERT's are: no copy. ``GetEmbedding`` runs

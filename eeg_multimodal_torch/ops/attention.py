@@ -2,8 +2,10 @@
 
 Replaces the JAX package's Pallas TPU kernels in ``ops/attention.py``:
 ``_fwd_kernel`` and ``_bwd_kernel``. The kernels are in
-``eeg_multimodal_torch/csrc/attention.cu`` (built by ``ops/_build.py``; the
-source notes what bounds them and how they are tiled). They compute
+``eeg_multimodal_torch/csrc/``: ``attention_f32.cu`` (f32, 3xTF32 on
+wgmma), ``attention_bf16.cu`` (bf16, wgmma and TMA), behind the C interface
+of ``attention.cu`` (built by ``ops/_build.py``; each source notes what
+bounds its kernels and how they are tiled). They compute
 
     out = dropout(softmax(q k^T / sqrt(D) + bias)) v
 
@@ -335,7 +337,7 @@ def _launch_fwd(q, k, v, bias, seed, dropout_rate: float = 0.0, block=Block()):
 
 
 def _launch_bwd(q, k, v, bias, seed, dropout_rate, out, stats, dout, block=Block()):
-    """Launch the backward kernels (the rowsum(dO O) pre-pass, dK/dV, dQ)
+    """Launch the backward kernels (the rowsum(dO O) pre-pass, dQ, dK/dV)
     on CUDA tensors, given the forward's ``out`` and ``stats`` and the output
     gradient ``dout``. Returns (dq, dk, dv), (B, H, S, D) views of
     (B, S, H, D) buffers."""
@@ -347,12 +349,12 @@ def _launch_bwd(q, k, v, bias, seed, dropout_rate, out, stats, dout, block=Block
     if tuple(stats.shape) != (2, B, H, S) or stats.dtype != torch.float32 \
             or not stats.is_contiguous():
         raise ValueError("stats must be the forward's contiguous (2, B, H, S) float32")
-    # the backward's scratch: delta per row; for bf16 each row's (m, 1 / l,
-    # delta, 0), then the dropout mask's keep bits that the dQ kernel leaves
-    # for dK/dV, 512 bytes per head and pair of 64-row tiles
+    # the backward's scratch: each row's (m, 1 / l, delta, 0), then the
+    # dropout mask's keep bits that the dQ kernel leaves for dK/dV, 512
+    # bytes per head and pair of 64-row tiles
     tiles = -(-S // 64)
-    n = B * H * (S * 4 + tiles * tiles * 128) if q.dtype == torch.bfloat16 else B * H * S
-    delta = torch.empty(n, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B * H * (S * 4 + tiles * tiles * 128), dtype=torch.float32,
+                        device=q.device)
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
     err = _lib().eeg_attn_bwd(*_common_args(q, k, v, bias, seed, dropout_rate, block),
                               out.data_ptr(), stats.data_ptr(), dout.data_ptr(),

@@ -248,7 +248,7 @@ def test_each_wgmma_accumulator_group_is_one_philox_call(N):
 
 
 def mask_byte(bh, i0, j0, S):
-    """``mask_byte`` of csrc/attention_bf16.cu: where the byte of the Philox
+    """``mask_byte`` of csrc/attention.cuh: where the byte of the Philox
     groups of rows i0, i0 + 1 (i0 even, bit 3 clear) and columns {j0, j0 +
     1} lies in the backward's mask bytes."""
     tiles, jt = -(-S // 64), j0 & 63
@@ -372,3 +372,261 @@ def test_backward_realigns_an_output_gradient_the_16_byte_loads_cannot_read():
         got = TA.vector_loadable(dout)
         TA.check_vector_loads("dout", got)
         assert torch.equal(got, dout)
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernels' 3xTF32 products on wgmma (csrc/attention_f32.cu)
+# ---------------------------------------------------------------------------
+
+def tf32_a_fragment():
+    """The k8 TF32 A register fragment of a warpgroup's m64nNk8 wgmma (PTX
+    ISA; CUTLASS's ALayout_64x8): (warp, lane, register) -> (row, k-slot)
+    as int arrays of shape (4, 32, 4). Warp w, lane t: registers a0..a3 are
+    (16 w + t / 4, t mod 4), (+ 8, t mod 4), (16 w + t / 4, t mod 4 + 4),
+    (+ 8, t mod 4 + 4)."""
+    w = np.arange(4)[:, None, None]
+    t = np.arange(32)[None, :, None]
+    r = np.arange(4)[None, None, :]
+    return 16 * w + t // 4 + 8 * (r & 1), t % 4 + 4 * (r >> 1)
+
+
+# split_a: A register r of k8 step kk is accumulator register 4 kk + E[r]
+SPLIT_A_REGISTER = (0, 2, 1, 3)
+
+
+def cols_slot_rows():
+    """The source row (within its group of 8) that each k-slot of a
+    transposed tile holds, as the kernels' Cols writes it: lane parity p
+    loads rows p + 2i (i = 0..3) and stores them at slots 4p + i."""
+    rows = np.empty(8, np.int64)
+    for p in range(2):
+        for i in range(4):
+            rows[4 * p + i] = p + 2 * i
+    return rows
+
+
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_a_split_accumulator_meets_the_b_rows_the_split_pass_writes(N):
+    """A score accumulator of N columns, split in registers, is the A
+    operand of the next k8 products (P V, dS K, P_drop^T dO, dS^T Q): in
+    every k8 step kk, each thread's A register r is accumulator register 4 kk
+    + SPLIT_A_REGISTER[r], of the same row as the fragment asks for, and its
+    column is the source row that the transposed B tile holds at the k-slot
+    the fragment gives that register, for every warp and lane; and each
+    (row, column) of the accumulator enters exactly one product term."""
+    acc_rows, acc_cols = wgmma_accumulator(N)
+    a_rows, a_slots = np.broadcast_arrays(*tf32_a_fragment())
+    slot_rows = cols_slot_rows()
+    assert sorted(slot_rows) == list(range(8))  # a permutation of the group
+    seen = set()
+    for kk in range(N // 8):
+        regs = 4 * kk + np.asarray(SPLIT_A_REGISTER)
+        rows, cols = np.broadcast_arrays(acc_rows[:, :, regs], acc_cols[:, :, regs])
+        np.testing.assert_array_equal(rows, a_rows)
+        np.testing.assert_array_equal(cols, 8 * kk + slot_rows[a_slots])
+        seen.update(zip(rows.ravel().tolist(), cols.ravel().tolist()))
+    assert len(seen) == 64 * N
+
+
+def tf32_hi(x):
+    """The kernels' tf32_hi: x with its 13 low mantissa bits cleared."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: x rounded to TF32, ties away from zero, low bits
+    cleared."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def split3(x):
+    """The kernels' split x = hi + lo (tf32_hi, tf32_lo)."""
+    hi = tf32_hi(x)
+    return hi, tf32_rna(x - hi)
+
+
+def trunc_f32(x):
+    """f64 values cut to f32 toward zero, as the tensor core's f32
+    accumulation truncates."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(y, np.float32(0)), y)
+
+
+def mma3_model(a, b, tile, passes=3):
+    """A @ B as the kernels compute it: over each tile of ``tile`` reduction
+    indices a fresh accumulator takes, one k8 step at a time (each step's 8
+    products exact, the accumulator truncated to f32 after it), hi.lo and
+    lo.hi first and hi.hi last (``passes=1``: hi.hi alone, plain TF32); each
+    tile's partial is added to the running f32 sum, rounded to nearest."""
+    a_hi, a_lo = split3(a)
+    b_hi, b_lo = split3(b)
+    terms = ([(a_hi, b_lo), (a_lo, b_hi)] if passes == 3 else []) + [(a_hi, b_hi)]
+    K = a.shape[-1]
+    total = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    for t0 in range(0, K, tile):
+        part = np.zeros_like(total)
+        for x, y in terms:
+            for k0 in range(t0, min(t0 + tile, K), 8):
+                step = np.matmul(x[..., k0:k0 + 8].astype(np.float64),
+                                 y[..., k0:k0 + 8, :].astype(np.float64))
+                part = trunc_f32(part.astype(np.float64) + step)
+        total = (total + part).astype(np.float32)
+    return total
+
+
+def attention_model(q, k, v, dout, bias, passes=3, bk=32, bq=32):
+    """The f32 kernels' forward and gradients with their products modelled
+    (``mma3_model``): score chains over D, P V and dS K by key tiles of
+    ``bk``, P^T dO and dS^T Q by query tiles of ``bq``; the softmax and the
+    elementwise steps in f32."""
+    D = q.shape[-1]
+    scale = np.float32(1.0 / np.sqrt(D))
+    kt = np.swapaxes(k, -1, -2)
+    s = mma3_model(q, kt, D, passes) * scale + bias[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    out = mma3_model(p, v, bk, passes)
+    dp = mma3_model(dout, np.swapaxes(v, -1, -2), D, passes)
+    delta = (dout * out).sum(-1, keepdims=True, dtype=np.float32)
+    ds = (p * (dp - delta)).astype(np.float32)
+    dq = mma3_model(ds, k, bk, passes) * scale
+    dk = mma3_model(np.swapaxes(ds, -1, -2), q, bq, passes) * scale
+    dv = mma3_model(np.swapaxes(p, -1, -2), dout, bq, passes)
+    return out, (dq, dk, dv)
+
+
+def attention_f64(q, k, v, dout, bias):
+    q, k, v, dout, bias = (x.astype(np.float64) for x in (q, k, v, dout, bias))
+    s = q @ np.swapaxes(k, -1, -2) / np.sqrt(q.shape[-1]) + bias[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = p @ v
+    dp = dout @ np.swapaxes(v, -1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    return out, (ds @ k * scale, np.swapaxes(ds, -1, -2) @ q * scale,
+                 np.swapaxes(p, -1, -2) @ dout)
+
+
+def test_the_3xtf32_split_holds_the_jax_tolerances_and_plain_tf32_does_not():
+    """The kernels' product arithmetic at (2, 2, 512, 64), modelled in numpy
+    (hi truncated, lo rounded to TF32, the three products with the small
+    terms first, each k8 step's sum truncated to f32, each tile's partial
+    added in f32), against f64: the forward within the JAX attention tests'
+    rtol 1e-4 / atol 1e-5 and the gradients within 2e-3 / 1e-4. Plain TF32
+    (hi.hi alone) misses the forward's tolerance, so the check tells a
+    split that is too lossy."""
+    q, k, v, g, bias = make_inputs(2, 2, 512, seed=11)
+    bias = bias[:, 0, :]
+    want_out, want_grads = attention_f64(q, k, v, g, bias)
+    out, grads = attention_model(q, k, v, g, bias)
+    np.testing.assert_allclose(out, want_out, **FWD_TOL)
+    for name, a, b in zip("qkv", grads, want_grads):
+        np.testing.assert_allclose(a, b, err_msg=f"d{name}", **GRAD_TOL)
+    assert np.abs(out - want_out).max() < 2e-6  # the card's f32 errors are of this order
+    tf32_out, _ = attention_model(q, k, v, g, bias, passes=1)
+    tol = FWD_TOL["atol"] + FWD_TOL["rtol"] * np.abs(want_out)
+    assert (np.abs(tf32_out - want_out) > tol).any()
+
+
+def staged_mask_bytes(buf, bh, S, k0, q0, BQ, NWG):
+    """The dK/dV kernel's staging of the mask bytes (load_small): thread x <
+    BQ NWG 2 copies 4 bytes of pair row x / (8 NWG) (query q0 + 16 (pr / 4)
+    + 2 (pr mod 4)) and key tile x / 8 mod NWG (keys k0 + 64 kt ..), at its
+    word x mod 8, to word x of the block's shared bytes; key tiles at or
+    past S stage zeros."""
+    staged = np.zeros(BQ * NWG * 8, np.uint8)
+    for x in range(BQ * NWG * 2):
+        pr, kt = x // (8 * NWG), x // 8 % NWG
+        i0 = q0 + 16 * (pr // 4) + 2 * (pr % 4)
+        if k0 + 64 * kt < S:
+            at = mask_byte(bh, i0, k0 + 64 * kt, S) + 4 * (x % 8)
+            staged[4 * x:4 * x + 4] = buf[at:at + 4]
+    return staged
+
+
+@pytest.mark.parametrize("S,BQ,NWG", [(80, 32, 2), (197, 32, 2), (512, 32, 2), (50, 16, 1),
+                                      (197, 16, 1)])
+def test_dkdv_staged_mask_bytes_equal_the_bytes_of_mask_byte(S, BQ, NWG):
+    """The f32 dK/dV kernel copies each query tile's mask bytes (the dQ
+    kernel's, in the bf16 kernels' geometry) to shared memory and reads a
+    thread's byte for queries a, a + 1, a + 8, a + 9 and key j there: that
+    byte is the one ``mask_byte`` gives, for every query tile, key block,
+    thread and key inside S."""
+    rng = np.random.RandomState(S + BQ)
+    B, H = 1, 2
+    tiles = -(-S // 64)
+    buf = rng.randint(0, 256, B * H * tiles * tiles * 512).astype(np.uint8)
+    for bh in range(B * H):
+        for k0 in range(0, S, 64 * NWG):
+            for q0 in range(0, S, BQ):
+                staged = staged_mask_bytes(buf, bh, S, k0, q0, BQ, NWG)
+                for wg in range(NWG):
+                    for lane in range(128):
+                        t, g, warp = lane % 4, (lane % 32) // 4, lane // 32
+                        for u in range(BQ // 16):
+                            a = q0 + 16 * u + 2 * t
+                            base = (4 * u + t) * NWG * 32
+                            for r in range(2):
+                                j = k0 + 64 * wg + 16 * warp + g + 8 * r
+                                if j >= S:
+                                    continue
+                                jj = j - k0
+                                got = staged[base + (jj >> 6) * 32 + ((jj >> 1) & 3) * 8
+                                             + ((jj & 63) >> 3)]
+                                assert got == buf[mask_byte(bh, a, j & ~1, S)], (bh, a, j)
+
+
+def test_attention_turns_refuses_to_run_without_a_card():
+    """``tools/attention_turns.py`` times the kernels on the card only: it
+    exits before building anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from eeg_multimodal_torch.tools import attention_turns
+
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        attention_turns.main([])
+    assert TA._lib.cache_info().currsize == 0
+
+
+def dq_f32_mask_writes(S, H=2, B=1, BK=32, NWG=2):
+    """The byte offsets the f32 dQ kernel writes to the backward's mask
+    bytes, modelled thread by thread: blocks of 64 NWG query rows (warpgroup
+    w, warp v, lane l: row q0 + 64 w + 16 v + l / 4, the lanes of even l / 4
+    writing for rows i0 and i0 + 1), key tiles of BK, BK / 8 bytes a thread
+    and tile at ``mask_byte`` of its first 8-key group, rows at or past S
+    rounded up to 64 skipped (the scratch holds no more). Returns
+    {(bh, offset): count}."""
+    writes = {}
+    for bh in range(B * H):
+        for q0 in range(0, S, 64 * NWG):
+            for w in range(NWG):
+                for lane in range(128):
+                    g, t = (lane % 32) // 4, lane % 4
+                    i0 = q0 + 64 * w + 16 * (lane // 32) + g
+                    if g % 2 or i0 >= -(-S // 64) * 64:
+                        continue
+                    for k0 in range(0, S, BK):
+                        at = mask_byte(bh, i0, k0 + 2 * t, S)
+                        for byte in range(at, at + BK // 8):
+                            writes[(bh, byte)] = writes.get((bh, byte), 0) + 1
+    return writes
+
+
+@pytest.mark.parametrize("S", [1, 32, 50, 64, 65, 80, 150, 197])
+def test_dq_f32_mask_writes_stay_in_their_head_and_cover_what_dkdv_reads(S):
+    """The f32 dQ blocks of two warpgroups reach up to 64 query rows past S
+    rounded up to 64, which the mask bytes do not hold. Every byte the
+    kernel writes lies in its own head's 512 tiles^2 bytes, is written once,
+    and every byte dK/dV reads (``mask_byte`` of each pair row a < S and key
+    j < S) is written."""
+    H, tiles = 2, -(-S // 64)
+    writes = dq_f32_mask_writes(S, H)
+    region = tiles * tiles * 512
+    assert all(bh * region <= at < (bh + 1) * region for bh, at in writes)
+    assert set(writes.values()) == {1}
+    read = {(bh, mask_byte(bh, a, j & ~1, S)) for bh in range(H) for j in range(S)
+            for a in range(0, S, 2) if a & 8 == 0}
+    assert read <= set(writes)
