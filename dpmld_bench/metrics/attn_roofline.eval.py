@@ -1,0 +1,10 @@
+"""attn_roofline.eval: BERT's attention calls' bound, max(operations / peak,
+bytes / bandwidth) at the cell's shapes, over the device time of the
+attention kernels in the profiled span, in percent."""
+from . import attn_kernels
+
+
+def read(ctx):
+    if ctx["kind"] != "eval" or ctx["span"] is None:
+        return None
+    return attn_kernels.share(ctx, train=False)

@@ -1,0 +1,32 @@
+"""A run with its timed path broken underneath comes out not correct: the
+harness's look for a card skipped, a whole run driven at a small size on
+the CPU with the committed limits, once for each fault the cell can have
+(one card, so no exchange between cards to leave out)."""
+import pytest
+import torch
+
+from dpmld_bench import calibrate, run
+
+TRAIN = ["tica_bf16.train_s80", "tica_f32.train_s512", "tica_bf16.sweep5_s80"]
+CASES = ([(c, f) for c in TRAIN for f in ("unchanged", "half_batch", "altered")]
+         + [("tica_bf16.eval_s80", f) for f in ("half_batch", "altered")])
+
+
+@pytest.mark.parametrize("cell,fault", CASES)
+def test_a_broken_timed_path_is_not_correct(tiny, cell, fault):
+    def edit(cfg, traffic):
+        tiny(cfg, traffic)
+        if len(traffic["epsilons"]) > 1:
+            traffic["epsilons"] = [0.1, 3.0]
+
+    with calibrate.fault(fault):
+        result, lines = run.run_cell(cell, 2**31 + 101, 0.2, False, torch.device("cpu"),
+                                     edit=edit)
+    assert result["correct"] is False, lines
+    assert list(result)[-1] == "checks"
+
+
+def test_the_sound_f32_path_is_correct(tiny):
+    result, lines = run.run_cell("tica_f32.train_s512", 2**31 + 101, 0.2, False,
+                                 torch.device("cpu"), edit=tiny)
+    assert result["correct"] is True, lines
