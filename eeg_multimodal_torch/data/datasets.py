@@ -20,6 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 # ---------------------------------------------------------------------------
 # Loaders for the reference's on-disk artifact formats (datasets.py:33-61 of
@@ -239,4 +241,5 @@ def epoch_indices(n: int, batch_size: int, shuffle: bool = True,
 
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Index every stacked array with a (B,) index vector."""
-    return {k: v.index_select(0, idx) for k, v in data.items()}
+    with span("eeg.data.gather"):
+        return {k: v.index_select(0, idx) for k, v in data.items()}

@@ -53,6 +53,7 @@ import torch
 from ..ops import dp as dp_ops
 from ..ops import dp_fused
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.seeding import derive_seed
 from ..utils.seeding import generator as make_generator
 from ..utils.trees import tree_cast, tree_items, tree_map
@@ -228,8 +229,9 @@ def _encode_streams(params, batch, config: FusionConfig, gen, layout=None):
         emb = L.linear(params["visual_encoder"], x.to(dtype))  # (B, 1, 768)
         return emb[:, 0, :], emb
 
-    feat_a, seq_a = stream(config.multimodal_type[0], batch["eeg_input"], batch["eeg_mask"])
-    feat_b, seq_b = stream(config.multimodal_type[1], batch["act_input"], batch["act_mask"])
+    with span("eeg.model.encoder"):
+        feat_a, seq_a = stream(config.multimodal_type[0], batch["eeg_input"], batch["eeg_mask"])
+        feat_b, seq_b = stream(config.multimodal_type[1], batch["act_input"], batch["act_mask"])
     return feat_a, seq_a, feat_b, seq_b
 
 
@@ -241,33 +243,35 @@ def encode_features(params, batch, config: FusionConfig, gen, train: bool, layou
     (``models/layers.py``)."""
     drop = gen if train else None
     feat_a, seq_a, feat_b, seq_b = _encode_streams(params, batch, config, drop, layout)
-    parts = [feat_a, feat_b]
-    if config.with_cross_attention:
-        if config.cross_atn_type == "single_stream":
-            # TISC (models.py:255-258): the encoder over [mean(seq_a), seq_b],
-            # in their promoted dtype, as JAX's concat. The mean covers every
-            # position of seq_a, padding included, as in the reference: it
-            # moves with the token columns kept.
-            mean = seq_a.mean(dim=1, keepdim=True)
-            dt = torch.promote_types(mean.dtype, seq_b.dtype)
-            src = torch.cat([mean.to(dt), seq_b.to(dt)], dim=1)
-            cross = L.encoder(params["cross"], src, N_HEADS, gen=drop, layout=layout).mean(dim=1)
-        else:
-            # decoder(tgt, memory): ti/tt take the act stream as tgt, it/ii
-            # the EEG stream (models.py:64-67, 157-160, 202-203); tt/ii pass
-            # no masks (:112-113); torch masks mask == 0
-            a_first = config.multimodal_type in ("ti", "tt")
-            tgt, memory = (seq_b, seq_a) if a_first else (seq_a, seq_b)
-            tgt_kpm = mem_kpm = None
-            if config.use_key_padding_masks:
-                eeg_kpm, act_kpm = batch["eeg_mask"] == 0, batch["act_mask"] == 0
-                tgt_kpm, mem_kpm = (act_kpm, eeg_kpm) if a_first else (eeg_kpm, act_kpm)
-            cross = L.decoder(params["cross"], tgt, memory, N_HEADS,
-                              tgt_key_padding_mask=tgt_kpm, memory_key_padding_mask=mem_kpm,
-                              gen=drop, layout=layout).mean(dim=1)
-        parts.append(cross)
-    # the head after the concat stays f32 (fusion.py:281-284 there)
-    return torch.cat([t.to(torch.float32) for t in parts], dim=1)
+    with span("eeg.model.decoder"):
+        parts = [feat_a, feat_b]
+        if config.with_cross_attention:
+            if config.cross_atn_type == "single_stream":
+                # TISC (models.py:255-258): the encoder over [mean(seq_a), seq_b],
+                # in their promoted dtype, as JAX's concat. The mean covers every
+                # position of seq_a, padding included, as in the reference: it
+                # moves with the token columns kept.
+                mean = seq_a.mean(dim=1, keepdim=True)
+                dt = torch.promote_types(mean.dtype, seq_b.dtype)
+                src = torch.cat([mean.to(dt), seq_b.to(dt)], dim=1)
+                cross = L.encoder(params["cross"], src, N_HEADS, gen=drop,
+                                  layout=layout).mean(dim=1)
+            else:
+                # decoder(tgt, memory): ti/tt take the act stream as tgt, it/ii
+                # the EEG stream (models.py:64-67, 157-160, 202-203); tt/ii pass
+                # no masks (:112-113); torch masks mask == 0
+                a_first = config.multimodal_type in ("ti", "tt")
+                tgt, memory = (seq_b, seq_a) if a_first else (seq_a, seq_b)
+                tgt_kpm = mem_kpm = None
+                if config.use_key_padding_masks:
+                    eeg_kpm, act_kpm = batch["eeg_mask"] == 0, batch["act_mask"] == 0
+                    tgt_kpm, mem_kpm = (act_kpm, eeg_kpm) if a_first else (eeg_kpm, act_kpm)
+                cross = L.decoder(params["cross"], tgt, memory, N_HEADS,
+                                  tgt_key_padding_mask=tgt_kpm, memory_key_padding_mask=mem_kpm,
+                                  gen=drop, layout=layout).mean(dim=1)
+            parts.append(cross)
+        # the head after the concat stays f32 (fusion.py:281-284 there)
+        return torch.cat([t.to(torch.float32) for t in parts], dim=1)
 
 
 def apply_head(params, feature_raw, config: FusionConfig, epsilon, hard: bool,
@@ -301,36 +305,38 @@ def apply_head(params, feature_raw, config: FusionConfig, epsilon, hard: bool,
     draws = mode in ("lapacian_dropout", "lapacian_dropout_equal_weight", "feature_all_lap")
     if draws and gen is None and dp_noise is None:
         raise ValueError(f"the {mode} block draws noise: pass a generator")
-    if mode == "lapacian_dropout" and config.fused_dp_kernel:
-        seed = L.draw_seeds(gen, feature_raw.device)
-        dp = params["DP"].float()
-        dp = dp.reshape(-1, dp.shape[-1])
-        if dp.shape[0] < seed.shape[0]:  # G groups of draws over one model's DP row
-            dp = dp.expand(seed.shape[0], -1).contiguous()
-        feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise,
-                                             r0=0 if layout is None else layout.b0)
-    else:
-        feature = dp_ops.minmax_normalize(feature_raw)
-        if mode == "lapacian_dropout":
-            if dp_noise is None:
-                dp_noise = dp_ops.laplace_noise(feature.shape, 1.0, gen, feature.device, layout)
-            feature = dp_ops.lap_dropout_fast(feature, params["DP"], epsilon, dp_noise,
-                                              prefix_eps_hat=config.prefix_eps_hat)
-        elif mode == "lapacian_dropout_equal_weight":
-            feature = dp_ops.equal_weight_dp(feature, epsilon, config.dropout_rate, train, gen,
-                                             noise=dp_noise, layout=layout)
-        elif mode == "feature_all_lap":
-            # PriConcat (main_0425.py:111-121): the minmax is done above, so
-            # not per_sample_laplace, which would normalize a second time
-            if dp_noise is None:
-                dp_noise = dp_ops.laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device,
-                                                layout)
-            scale = dp_ops.member_scalar(epsilon, lambda e: 1.0 / e)
-            feature = (dp_ops.by_member(feature, epsilon)
-                       + dp_ops.by_member(dp_noise, epsilon) * scale).reshape(feature.shape)
-    h = torch.relu(L.column_parallel(params["fc1"], feature, layout))
-    h = torch.tanh(L.row_parallel(params["fc2"], h, layout))
-    return L.linear(params["classifier"], h)
+    with span("eeg.model.dp_block"):
+        if mode == "lapacian_dropout" and config.fused_dp_kernel:
+            seed = L.draw_seeds(gen, feature_raw.device)
+            dp = params["DP"].float()
+            dp = dp.reshape(-1, dp.shape[-1])
+            if dp.shape[0] < seed.shape[0]:  # G groups of draws over one model's DP row
+                dp = dp.expand(seed.shape[0], -1).contiguous()
+            feature = dp_fused.fused_lap_dropout(feature_raw, dp, epsilon, seed, noise=dp_noise,
+                                                 r0=0 if layout is None else layout.b0)
+        else:
+            feature = dp_ops.minmax_normalize(feature_raw)
+            if mode == "lapacian_dropout":
+                if dp_noise is None:
+                    dp_noise = dp_ops.laplace_noise(feature.shape, 1.0, gen, feature.device, layout)
+                feature = dp_ops.lap_dropout_fast(feature, params["DP"], epsilon, dp_noise,
+                                                  prefix_eps_hat=config.prefix_eps_hat)
+            elif mode == "lapacian_dropout_equal_weight":
+                feature = dp_ops.equal_weight_dp(feature, epsilon, config.dropout_rate, train, gen,
+                                                 noise=dp_noise, layout=layout)
+            elif mode == "feature_all_lap":
+                # PriConcat (main_0425.py:111-121): the minmax is done above, so
+                # not per_sample_laplace, which would normalize a second time
+                if dp_noise is None:
+                    dp_noise = dp_ops.laplace_noise((feature.shape[0], 1), 1.0, gen, feature.device,
+                                                    layout)
+                scale = dp_ops.member_scalar(epsilon, lambda e: 1.0 / e)
+                feature = (dp_ops.by_member(feature, epsilon)
+                           + dp_ops.by_member(dp_noise, epsilon) * scale).reshape(feature.shape)
+    with span("eeg.model.head"):
+        h = torch.relu(L.column_parallel(params["fc1"], feature, layout))
+        h = torch.tanh(L.row_parallel(params["fc2"], h, layout))
+        return L.linear(params["classifier"], h)
 
 
 def apply(params, batch, config: FusionConfig, epsilon, hard: bool,

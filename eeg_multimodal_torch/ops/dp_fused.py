@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from . import dp as dp_ops
 from .dp import laplace_from_bits, member_exp
@@ -194,11 +195,13 @@ class KernelWrapper:
 
     ``launches`` grows by one at each launch of the kernel, and nowhere else;
     ``by_dtype`` splits that count by the dtype of the first argument, i.e.
-    by the instantiation launched.
+    by the instantiation launched. Each call, checks and launch, is the span
+    ``eeg.kernel.<name>``.
     """
 
     def __init__(self, name, launch):
         self.name = name
+        self._span = "eeg.kernel." + name
         self._launch = launch
         self.reset()
 
@@ -208,7 +211,8 @@ class KernelWrapper:
         self.by_dtype = {}
 
     def __call__(self, *args, **kwargs):
-        out = self._launch(*args, **kwargs)
+        with span(self._span):
+            out = self._launch(*args, **kwargs)
         self.launches += 1
         dtype = str(args[0].dtype).replace("torch.", "")
         self.by_dtype[dtype] = self.by_dtype.get(dtype, 0) + 1

@@ -58,6 +58,7 @@ from ..models import fusion
 from ..parallel import sharding
 from ..parallel.mesh import Mesh
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.seeding import DEFAULT_SEED, child_generator, derive_seed
 from .records import RunRecorder
 from .trainer import StepFunctions, TrainConfig, epoch_generator
@@ -190,13 +191,15 @@ class SweepRunner:
         ``Trainer.epoch_inputs`` draws it at the seed that owns it."""
         cfg, dev = self.train_cfg, self.device
         lead = members[0].seed if lead is None else lead
-        idx, w = epoch_indices(n_train, cfg.batch_size, True,
-                               epoch_generator(lead, epoch, "shuffle"), dev)
-        eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,
-                                 epoch_generator(lead, epoch, "eval_shuffle")
-                                 if cfg.shuffle_eval else None, dev)
-        return (idx, w, tuple(epoch_generator(m.seed, epoch, "train", dev) for m in members),
-                eidx, ew, tuple(epoch_generator(m.seed, epoch, "eval", dev) for m in members))
+        with span("eeg.epoch.inputs"):
+            idx, w = epoch_indices(n_train, cfg.batch_size, True,
+                                   epoch_generator(lead, epoch, "shuffle"), dev)
+            eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,
+                                     epoch_generator(lead, epoch, "eval_shuffle")
+                                     if cfg.shuffle_eval else None, dev)
+            return (idx, w, tuple(epoch_generator(m.seed, epoch, "train", dev) for m in members),
+                    eidx, ew,
+                    tuple(epoch_generator(m.seed, epoch, "eval", dev) for m in members))
 
     def _run_chunk(self, members, train_data, test_data, log_root, echo):
         cfg = self.train_cfg

@@ -69,6 +69,7 @@ from ..models import fusion
 from ..ops.optim import Adam
 from ..parallel import sharding
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.seeding import (DEFAULT_SEED, child_generator, derive_seed, generator, get_state,
                              set_state)
 from ..utils.trees import tree_cast, tree_items, tree_map, tree_map_with_path
@@ -236,7 +237,8 @@ class StepFunctions:
         """The compute-dtype copy of the model params that ``train_step``
         takes with ``precast_params`` (``DP`` stays out: each phase casts
         the live leaf)."""
-        return tree_cast({k: v for k, v in params.items() if k != "DP"}, self.compute_dtype)
+        with span("eeg.epoch.precast"):
+            return tree_cast({k: v for k, v in params.items() if k != "DP"}, self.compute_dtype)
 
     def forward(self, params, batch, epsilon, hard, gen, train, dp_noise=None):
         """The logits of ``batch``'s rows (``fusion.apply``); under a mesh of
@@ -326,6 +328,12 @@ class StepFunctions:
         DP noise, and ``dropout=False`` turns dropout off, so that the step
         can be held against the JAX reference's.
         """
+        with span("eeg.step"):
+            return self._step(params, dp_os, model_os, batch, weight, epsilon, gen, dp_noise,
+                              dropout, params_c)
+
+    def _step(self, params, dp_os, model_os, batch, weight, epsilon, gen, dp_noise, dropout,
+              params_c):
         g1, g2 = self.phase_generators(gen)
         if not self.has_dp_param:
             return (dp_os, *self._model_phase(params, model_os, batch, weight, epsilon, g2,
@@ -343,17 +351,17 @@ class StepFunctions:
             return {k: (dp if k == "DP" else params_c[k]) for k in params}
 
         # phase 1: DP only, hard=False (base_train.py:183-195)
-        if params_c is None:
-            p1, (dp_alias,), dp_leaves = _track(params, fusion.dp_param_predicate)
-            p1 = self.compute(p1)
-        else:
-            dp_leaves = [params["DP"]]
-            dp_alias = params["DP"].detach().requires_grad_()
-            p1 = with_dp(dp_alias.to(cd))
-        loss1 = self.loss_fn(p1, batch, weight, epsilon, g1, hard=False,
-                             train=dropout, dp_noise=dp_noise[0])[0]
-        g_dp = self.sync_grads(list(torch.autograd.grad(self.objective(loss1), [dp_alias])))
-        dp_os = self.dp_opt.update(dp_leaves, g_dp, dp_os)
+        with span("eeg.step.phase1"):
+            if params_c is None:
+                p1, (dp_alias,), dp_leaves = _track(params, fusion.dp_param_predicate)
+                p1 = self.compute(p1)
+            else:
+                dp_leaves = [params["DP"]]
+                dp_alias = params["DP"].detach().requires_grad_()
+                p1 = with_dp(dp_alias.to(cd))
+            loss1 = self.loss_fn(p1, batch, weight, epsilon, g1, hard=False,
+                                 train=dropout, dp_noise=dp_noise[0])[0]
+            dp_os = self._dp_update(loss1, dp_alias, dp_leaves, dp_os)
 
         # phase 2: every other parameter, hard=True (base_train.py:197-210)
         if replay is not None:
@@ -368,21 +376,39 @@ class StepFunctions:
         single-optimizer step. With ``params_c`` the gradient is taken
         w.r.t. the compute-dtype copy and cast up, and the copy is refreshed
         from the updated masters. Returns (model_os, loss, acc)."""
-        if params_c is None:
-            p, aliases, model_leaves = _track(params, _is_model)
-            p = self.compute(p)
-        else:
-            dp = {"DP": params["DP"].detach().to(self.compute_dtype)} if "DP" in params else {}
-            p, aliases, copies = _track({**params_c, **dp}, _is_model)
-            model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
-        loss, acc, _, _ = self.loss_fn(p, batch, weight, epsilon, gen, hard=True, train=dropout,
-                                       dp_noise=noise)
-        grads = self.sync_grads([g.float() for g in torch.autograd.grad(self.objective(loss),
-                                                                         aliases)])
-        model_os = self.model_opt.update(model_leaves, grads, model_os)
-        if params_c is not None:
-            torch._foreach_copy_(copies, model_leaves)
-        return model_os, loss.detach(), acc.detach()
+        with span("eeg.step.phase2"):
+            if params_c is None:
+                p, aliases, model_leaves = _track(params, _is_model)
+                p = self.compute(p)
+            else:
+                dp = {"DP": params["DP"].detach().to(self.compute_dtype)} if "DP" in params else {}
+                p, aliases, copies = _track({**params_c, **dp}, _is_model)
+                model_leaves = [t for path, t in tree_items(params) if _is_model(path)]
+            loss, acc, _, _ = self.loss_fn(p, batch, weight, epsilon, gen, hard=True,
+                                           train=dropout, dp_noise=noise)
+            model_os = self._model_update(loss, aliases, model_leaves, model_os,
+                                          None if params_c is None else copies)
+            return model_os, loss.detach(), acc.detach()
+
+    def _dp_update(self, loss, dp_alias, dp_leaves, dp_os):
+        """Phase 1's backward to the ``DP`` alias and Adam on ``DP``."""
+        with span("eeg.backward"):
+            g_dp = torch.autograd.grad(self.objective(loss), [dp_alias])
+        with span("eeg.optim.dp"):
+            return self.dp_opt.update(dp_leaves, self.sync_grads(list(g_dp)), dp_os)
+
+    def _model_update(self, loss, aliases, masters, model_os, copies=None):
+        """Phase 2's backward to the model params' ``aliases``, the gradients
+        cast up to f32, and Adam on the ``masters``; then the precast
+        ``copies`` refreshed from them, where given."""
+        with span("eeg.backward"):
+            grads = torch.autograd.grad(self.objective(loss), aliases)
+        with span("eeg.optim.model"):
+            grads = self.sync_grads([g.float() for g in grads])
+            model_os = self.model_opt.update(masters, grads, model_os)
+            if copies is not None:
+                torch._foreach_copy_(copies, masters)
+        return model_os
 
     # -- the fast modes' two phases over features encoded once -----------------
     def _model_tree(self, params):
@@ -406,18 +432,17 @@ class StepFunctions:
         phase 2 (the head on ``f2`` with the updated ``DP``, one backward
         into head and encoder, Adam); ``replay``, a state of ``g2`` to set
         before phase 2."""
-        dp_alias = params["DP"].detach().requires_grad_()
-        loss1 = self._head_loss(pc, dp_alias, f1.detach(), batch, weight, epsilon, False, g1,
-                                dp_noise[0])[0]
-        g_dp = self.sync_grads(list(torch.autograd.grad(self.objective(loss1), [dp_alias])))
-        dp_os = self.dp_opt.update([params["DP"]], g_dp, dp_os)
-        if replay is not None:
-            set_state(g2, replay)
-        loss, acc = self._head_loss(pc, params["DP"].detach(), f2, batch, weight, epsilon, True,
-                                    g2, dp_noise[1])
-        grads = self.sync_grads([g.float() for g in torch.autograd.grad(self.objective(loss),
-                                                                         aliases)])
-        model_os = self.model_opt.update(masters, grads, model_os)
+        with span("eeg.step.phase1"):
+            dp_alias = params["DP"].detach().requires_grad_()
+            loss1 = self._head_loss(pc, dp_alias, f1.detach(), batch, weight, epsilon, False, g1,
+                                    dp_noise[0])[0]
+            dp_os = self._dp_update(loss1, dp_alias, [params["DP"]], dp_os)
+        with span("eeg.step.phase2"):
+            if replay is not None:
+                set_state(g2, replay)
+            loss, acc = self._head_loss(pc, params["DP"].detach(), f2, batch, weight, epsilon,
+                                        True, g2, dp_noise[1])
+            model_os = self._model_update(loss, aliases, masters, model_os)
         return dp_os, model_os, loss.detach(), acc.detach()
 
     def _shared_feature_step(self, params, dp_os, model_os, batch, weight, epsilon, gen,
@@ -429,11 +454,12 @@ class StepFunctions:
         before phase 2, so its head draws phase 1's DP noise again. Under a
         mesh the encoder and both heads run on the rank's rows."""
         pc, aliases, masters = self._model_tree(params)
-        if self.mesh is None:
-            feature = self.encode(pc, batch, gen, dropout)
-        else:
-            layout = sharding.Layout.of(self.mesh, batch["labels"].shape[0])
-            feature = self.encode(pc, layout.local_rows(batch), gen, dropout, layout)
+        with span("eeg.step.encode"):
+            if self.mesh is None:
+                feature = self.encode(pc, batch, gen, dropout)
+            else:
+                layout = sharding.Layout.of(self.mesh, batch["labels"].shape[0])
+                feature = self.encode(pc, layout.local_rows(batch), gen, dropout, layout)
         return self._two_phases(params, dp_os, model_os, pc, aliases, masters, feature,
                                 feature, batch, weight, epsilon, gen, gen, dp_noise,
                                 replay=get_state(gen))
@@ -458,8 +484,9 @@ class StepFunctions:
         if self.mesh is not None:
             layout = sharding.Layout.of(self.mesh, B, groups=2)
             inputs, B = sharding.Layout.of(self.mesh, B).local_rows(inputs), layout.local
-        pair = {k: torch.cat([v, v]) for k, v in inputs.items()}
-        feats = self.encode(pc, pair, self.pair_generators(g1, g2), dropout, layout)
+        with span("eeg.step.encode"):
+            pair = {k: torch.cat([v, v]) for k, v in inputs.items()}
+            feats = self.encode(pc, pair, self.pair_generators(g1, g2), dropout, layout)
         feats = feats.reshape(-1, 2, B, feats.shape[-1])  # (models, phase, B, F)
         f1, f2 = (feats[:, i].reshape(-1, feats.shape[-1]) for i in range(2))
         return self._two_phases(params, dp_os, model_os, pc, aliases, masters, f1, f2, batch,
@@ -494,6 +521,10 @@ class StepFunctions:
         else each batch through one of n_eval x B rows. ``dp_noise`` (tests
         only) gives each batch its (B, F) noise, or its n_eval of them. The
         losses, accuracies, predictions and scores lead with ``lead``."""
+        with span("eeg.eval"):
+            return self._eval_epoch(params, data, idx, weight, epsilon, gen, dp_noise)
+
+    def _eval_epoch(self, params, data, idx, weight, epsilon, gen, dp_noise):
         params = self.compute(params)
         n_eval = self.train_cfg.n_eval
         n_batches, B = idx.shape
@@ -523,15 +554,17 @@ class StepFunctions:
         n, B = idx.shape
         rows = idx.reshape(-1)
         batch = gather_batch(data, rows if n_eval == 1 else rows.repeat(n_eval))
-        logits = self.forward(params, batch, epsilon, True, gen, False,
-                              None if noise is None else noise.reshape(n_eval * n * B, -1))
-        logits = logits.reshape(*self.lead, n_eval, n, B, -1)
-        labels = batch["labels"][:n * B].reshape(n, B)
-        # per-batch means over each (repeat, batch), with the batch's weights
-        losses, accs, pred, _ = M.cal_loss(logits, labels.expand(*self.lead, n_eval, n, B),
-                                           weight)
-        vote = (pred.to(torch.float32).mean(-3) > 0.5).to(pred.dtype)
-        return losses.mean(-2), accs.mean(-2), vote, labels, logits[..., 1].mean(-3)
+        with span("eeg.eval.forward"):
+            logits = self.forward(params, batch, epsilon, True, gen, False,
+                                  None if noise is None else noise.reshape(n_eval * n * B, -1))
+        with span("eeg.eval.metrics"):
+            logits = logits.reshape(*self.lead, n_eval, n, B, -1)
+            labels = batch["labels"][:n * B].reshape(n, B)
+            # per-batch means over each (repeat, batch), with the batch's weights
+            losses, accs, pred, _ = M.cal_loss(logits, labels.expand(*self.lead, n_eval, n, B),
+                                               weight)
+            vote = (pred.to(torch.float32).mean(-3) > 0.5).to(pred.dtype)
+            return losses.mean(-2), accs.mean(-2), vote, labels, logits[..., 1].mean(-3)
 
     def epoch(self, params, dp_os, model_os, train_data, test_data, idx, weight, train_gen,
               eidx, eweight, eval_gen, epsilon):
@@ -614,10 +647,12 @@ class Trainer:
         def gen(name, device="cpu"):
             return epoch_generator(cfg.seed, epoch, name, device)
 
-        idx, w = epoch_indices(n_train, cfg.batch_size, True, gen("shuffle"), self.device)
-        eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,
-                                 gen("eval_shuffle") if cfg.shuffle_eval else None, self.device)
-        return idx, w, gen("train", self.device), eidx, ew, gen("eval", self.device)
+        with span("eeg.epoch.inputs"):
+            idx, w = epoch_indices(n_train, cfg.batch_size, True, gen("shuffle"), self.device)
+            eidx, ew = epoch_indices(n_test, cfg.batch_size, cfg.shuffle_eval,
+                                     gen("eval_shuffle") if cfg.shuffle_eval else None,
+                                     self.device)
+            return idx, w, gen("train", self.device), eidx, ew, gen("eval", self.device)
 
     def cycle_inputs(self, epochs, n_train: int, n_test: int):
         """The inputs of ``StepFunctions.cycle`` for ``epochs``, each drawn

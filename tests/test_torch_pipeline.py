@@ -26,7 +26,6 @@ import pytest
 import torch
 
 from eeg_multimodal_tpu.train import pipeline as JPL
-from eeg_multimodal_tpu.utils import profiling as JPR
 from eeg_multimodal_torch.models import bert as TB
 from eeg_multimodal_torch.models import fusion as TF
 from eeg_multimodal_torch.ops.optim import AdamState
@@ -249,21 +248,8 @@ def test_pretrain_finetune_equals_its_two_fits(tmp_path, monkeypatch):
     assert out2["pretrain"] is None and rows(out2["finetune"]) == rows(want_fin)
 
 
-def test_step_timer_trace_and_finite_guards(tmp_path):
-    assert {m for m in dir(JPR.StepTimer) if not m.startswith("_")} == \
-        {m for m in dir(TPR.StepTimer) if not m.startswith("_")}
-    timer = TPR.StepTimer()
-    assert timer.median == 0.0 and timer.steps_per_sec() == 0.0
-    for _ in range(3):
-        timer.start()
-        y = torch.ones(64, 64) @ torch.ones(64, 64)
-        assert timer.stop(y) >= 0.0
-    assert len(timer.times) == 3 and timer.steps_per_sec(8) == 8 / timer.median
-    with TPR.trace(None):
-        pass
-    with TPR.trace(str(tmp_path / "tr")):
-        torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+def test_step_timer_trace_and_finite_guards():
+    """The finite guards (the port's tracing is ``span``, tests/test_torch_spans.py)."""
     TPR.assert_finite({"a": torch.ones(2), "i": torch.arange(3)}, "ok")
     with pytest.raises(FloatingPointError, match="params at b/1"):
         TPR.assert_finite({"b": [torch.ones(1), torch.tensor([1.0, float("nan")])]}, "params")
