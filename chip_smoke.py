@@ -21,7 +21,11 @@ past 65; (128, 12, 50, 64), p = 0, forward and backward; tails of 2); the
 kernels' global offsets (each block of a (2, 2) layout of (8, 12, S, 64)
 against the global call: the mask bit for bit, the outputs within the
 tolerances; the DP block's rows 4-7 with r0 = 4 bit for bit); and a 2-layer
-BERT at S = 512 on the card against the CPU. Checks the bf16 Adam moment's
+BERT at S = 512 on the card against the CPU. Holds the f32 GEMM kernel
+(``ops/gemm.py``: 3xTF32 on wgmma) against f64 products at every shape the
+benchmark's cells route to it, forward, dX and dW, beside cuBLAS f32's and
+plain TF32's errors, and times it beside cuBLAS f32 (device us, and host us
+a call of the route beside ``F.linear``'s). Checks the bf16 Adam moment's
 stochastic rounding on the card. Then drives the main paths at full width
 (BERT-base, 3-layer cross-attention decoder, F = 2304, batch 8):
 
@@ -430,13 +434,18 @@ def profile_step(torch, step, label, flops=None, work="2 forwards + 1 backward ~
     host's kernel launches and the top host ops of one steady-state train
     step; returns the device us by kernel name. ``work`` says what ``flops``
     counts (None: no matmul count is printed)."""
+    from eeg_multimodal_torch.ops import gemm as G
+
     step()
     torch.cuda.synchronize()
+    routed, declined = G.gemm_f32.launches, G.gemm_f32.declined
     t0 = time.perf_counter()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  {label}: f32 GEMM kernel launches a step {(G.gemm_f32.launches - routed) / 3:.0f}, "
+          f"f32 products declined to cuBLAS {(G.gemm_f32.declined - declined) / 3:.0f}")
     print(f"  {label}: train step {step_ms:.2f} ms ({1e3 / step_ms:.2f} steps/s)" + (
         f"; matmul work ~{flops / 1e9:.0f} GFLOP/step ({work}) = "
         f"{flops / F32_OPS_PER_S * 1e3:.2f} ms at the f32 peak" if flops else ""))
@@ -581,6 +590,128 @@ def check_attention_kernels(torch, A, gen, dev, zoo_seqs, dpsgd_bs):
     print("  max errors over the shapes: " + ", ".join(
         f"{name} {dt} {e:.3g}" for (name, dt), e in sorted(worst.items()))
         + " (CUDA-core design: f32 2.98e-7 / 4.77e-7, bf16 1.95e-3 / 7.81e-3)")
+    return err
+
+
+# The f32 products of the benchmark's cells at the GEMM kernel's shapes
+# (ops/gemm.py), as (M, K, N, row stride of the kernel): BERT-base at batch
+# 8, S = 512 (tica_f32.train_s512: the packed QKV, the attention output,
+# the FFN's two), and the decoder's K and V projections of the memory, a
+# column slice of the (768, 2304) in-projection, at 8 x 512 rows
+# (tica_f32.train_s512), 8 x 80 (tica_bf16.train_s80, under the route's
+# floor: checked, not routed) and 608 x 80 (tica_bf16.eval_s80, forward
+# only); then ragged rows (1001). The train shapes take both gradients too.
+GEMM_SHAPES = ((4096, 768, 2304, 2304, True), (4096, 768, 768, 768, True),
+               (4096, 768, 3072, 3072, True), (4096, 3072, 768, 768, True),
+               (4096, 768, 768, 2304, True), (640, 768, 768, 2304, True),
+               (48640, 768, 768, 2304, False), (1001, 768, 768, 768, True))
+# the JAX f32 tolerances (tests/test_attention_kernel.py's forward)
+GEMM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def tf32_round(torch, x):
+    """x rounded to TF32 (cvt.rna: ties away from zero, 13 low bits clear):
+    a plain TF32 product's operands."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def host_us(torch, fn, n=50):
+    """Host us a call of ``fn`` over a burst of ``n`` calls after a
+    synchronise, short enough that the launch queue never fills."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def check_gemm_kernel(torch, G, gen, dev, timing=True):
+    """The f32 GEMM kernel against f64 products at ``GEMM_SHAPES``, in its
+    three layouts (the forward with the bias, dX, dW): each within the JAX
+    f32 tolerances, its max error beside cuBLAS f32's (TF32 off) and a plain
+    TF32 product's (operands rounded to TF32, the sum in f64: plain TF32 at
+    its best), at most 4x the first and 100x below the second; every split-K
+    share bit for bit the same on a repeat and within the tolerances; the
+    autograd Function's gradients equal to the kernel's, also for an output
+    gradient off the 16-byte grid (copied to fresh memory). With ``timing``:
+    device us (CUDA events) beside cuBLAS f32's and the 3xTF32 bound, and
+    host us a call of the route (``linear_f32``) beside ``F.linear``'s, and
+    of the backward's launches (dX, dW, the bias's sum) beside torch's.
+    Returns the max errors by (layout, shape)."""
+    import torch.nn.functional as F
+
+    names = {G.FWD: "fwd", G.DX: "dX", G.DW: "dW"}
+    err = {}
+    for M, K, N, ld, train in GEMM_SHAPES:
+        x = torch.randn(M, K, generator=gen, device=dev)  # LayerNorm's scale
+        w = (torch.randn(K, ld, generator=gen, device=dev) * 0.02)[:, :N]  # BERT's init
+        b = torch.randn(N, generator=gen, device=dev) * 0.02
+        dy = torch.randn(M, N, generator=gen, device=dev) * 0.02
+        cases = [(G.FWD, x, w, b, lambda: F.linear(x, w.t(), b))]
+        if train:
+            cases += [(G.DX, dy, w, None, lambda: torch.matmul(dy, w.t())),
+                      (G.DW, x, dy, None, lambda: torch.matmul(x.t(), dy))]
+        for layout, a, bb, bias, cublas in cases:
+            got = G.gemm_f32(a, bb, bias, layout)
+            want = G.gemm_plain(layout, a.double(), bb.double(),
+                                None if bias is None else bias.double())
+            lib = cublas()
+            tf32 = G.gemm_plain(layout, tf32_round(torch, a).double(),
+                                tf32_round(torch, bb).double(),
+                                None if bias is None else bias.double())
+            e, e_lib, e_tf32 = (float((t.double() - want).abs().max()) for t in (got, lib, tf32))
+            torch.testing.assert_close(got.double(), want, **GEMM_TOL)
+            check(e <= 4 * e_lib, f"{names[layout]} {(M, K, N)}: error {e:.3g} > 4x cuBLAS "
+                                  f"f32's {e_lib:.3g}")
+            check(100 * e <= e_tf32, f"{names[layout]} {(M, K, N)}: error {e:.3g} not 100x "
+                                     f"below plain TF32's {e_tf32:.3g}")
+            check(torch.equal(got, G.gemm_f32(a, bb, bias, layout)), "not deterministic")
+            dims = G.dims(layout, a, bb)
+            chosen = G.splits_for(*dims, G._sms(dev.index))
+            for s in range(1, G.MAX_SPLITS + 1):  # every split-K share
+                part = G.gemm_f32(a, bb, bias, layout, splits=s)
+                check(torch.equal(part, G.gemm_f32(a, bb, bias, layout, splits=s)),
+                      f"split {s} not deterministic")
+                torch.testing.assert_close(part.double(), want, **GEMM_TOL)
+                check(s != chosen or torch.equal(part, got), "the chosen split differs")
+            err[(names[layout], (M, K, N))] = e
+            line = (f"  {names[layout]:3s} (M, N, K) = {dims}, split {chosen}: max|err| vs f64 "
+                    f"{e:.3g} (cuBLAS f32 {e_lib:.3g}, plain TF32 {e_tf32:.3g})")
+            if timing:
+                us = time_ms(torch, lambda: G.gemm_f32(a, bb, bias, layout), 20, 5) * 1e3
+                lib_us = time_ms(torch, cublas, 20, 5) * 1e3
+                bound = 2 * dims[0] * dims[1] * dims[2] / TF32X3_OPS_PER_S * 1e6
+                line += (f"; device us {us:.1f} (cuBLAS f32 {lib_us:.1f}, {us / lib_us:.3f}x; "
+                         f"3xTF32 bound {bound:.1f}; {2 * dims[0] * dims[1] * dims[2] / us / 1e6:.1f}"
+                         " TFLOP/s)")
+            print(line)
+        if train:  # the autograd Function: its gradients are the kernel's
+            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+            got = torch.autograd.grad(G.linear_f32(*leaves), leaves, dy)
+            want = (G.gemm_f32(dy, w, None, G.DX), G.gemm_f32(x, dy, None, G.DW), dy.sum(0))
+            check(all(torch.equal(u, v) for u, v in zip(got, want)),
+                  f"linear_f32's gradients differ from the kernel's at {(M, K, N)}")
+            odd = torch.empty(dy.numel() + 1, device=dev)[1:].view_as(dy)  # off the 16-byte grid
+            odd.copy_(dy)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+            got = torch.autograd.grad(G.linear_f32(*leaves), leaves, odd)
+            check(not G.loadable(odd) and all(torch.equal(u, v) for u, v in zip(got, want)),
+                  f"a misaligned output gradient gives other gradients at {(M, K, N)}")
+        if timing:  # the wrapper's launches against torch's, the autograd engine's share aside
+            fwd = (host_us(torch, lambda: G.linear_f32(x, w, b)),
+                   host_us(torch, lambda: F.linear(x, w.t(), b)))
+            bwd = (host_us(torch, lambda: (G.gemm_f32(dy, w, None, G.DX),
+                                           G.gemm_f32(x, dy, None, G.DW), dy.sum(0)))
+                   if train else float("nan"),
+                   host_us(torch, lambda: (dy.mm(w.t()), x.t().mm(dy), dy.sum(0)))
+                   if train else float("nan"))
+            print(f"      host us a call, route / torch: forward {fwd[0]:.1f} / {fwd[1]:.1f} "
+                  f"(F.linear); backward's launches {bwd[0]:.1f} / {bwd[1]:.1f} (two mm and the "
+                  "bias's sum)")
     return err
 
 
@@ -3570,7 +3701,7 @@ def run_remaining_entry_points(torch, all_kernels, layers, examples_root):
 
 
 GEMM = re.compile(r"gemm|gemv|xmma|cutlass|nvjet", re.I)
-TENSOR_CORE = re.compile(r"nvjet|bf16|s16816|h16816|hmma|gmma|tf32", re.I)
+TENSOR_CORE = re.compile(r"nvjet|bf16|s16816|h16816|hmma|gmma|tf32|gemm_f32", re.I)
 
 
 def gemm_split(by_kernel):
@@ -3712,6 +3843,12 @@ def main():
             f"{name} {dt} {e:.3g}" for (name, dt), e in check_grouped_attention(
                 torch, A, gen, dev, G).items()))
     print(f"  (checks {time.time() - t0:.1f} s)")
+
+    phase("the f32 GEMM kernel against f64 products at the cells' shapes, beside cuBLAS f32")
+    t0 = time.time()
+    from eeg_multimodal_torch.ops import gemm as G
+    gemm_err = check_gemm_kernel(torch, G, gen, dev)
+    print(f"  max error over the shapes {max(gemm_err.values()):.3g} (checks {time.time() - t0:.1f} s)")
 
     phase("the kernels' global offsets: blocks of a (2, 2) layout against the global call")
     err.update(check_offset_kernels(torch, A, K, gen, dev))

@@ -112,18 +112,6 @@ constexpr int blocks_per_sm(int smem, int cap) {
   return 233472 / (smem + 1024) < cap ? 233472 / (smem + 1024) : cap;
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// x split, its hi and lo stored as 16 bytes each
-__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, float4 x) {
-  const uint4 h = make_uint4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
-  *reinterpret_cast<uint4*>(hi) = h;
-  *reinterpret_cast<uint4*>(lo) =
-      make_uint4(tf32_lo(x.x, h.x), tf32_lo(x.y, h.y), tf32_lo(x.z, h.z), tf32_lo(x.w, h.w));
-}
-
 // the 4 floats at column 4c of row `row` of a (S, D) matrix with row
 // stride ld, zeros past S
 __device__ __forceinline__ float4 load4(const float* src, int64_t ld, int row, int c, int S) {

@@ -1,9 +1,9 @@
-// The Hopper (sm_90a) machinery that both attention sources build on:
-// shared-memory addresses, mbarriers, TMA copies, wgmma's matrix
+// The Hopper (sm_90a) machinery that the attention sources and the f32 GEMM
+// build on: shared-memory addresses, mbarriers, TMA copies, wgmma's matrix
 // descriptors, fences and products. attention_bf16.cu reads bf16 tiles that
-// TMA lays out with the 128-byte swizzle; attention_f32.cu writes its TF32
-// tiles itself, without swizzle (KTile), after splitting each element into
-// the two halves of the 3xTF32 product.
+// TMA lays out with the 128-byte swizzle; attention_f32.cu and gemm_f32.cu
+// write their TF32 tiles themselves, without swizzle (KTile), after
+// splitting each element into the two halves of the 3xTF32 product.
 #pragma once
 
 #include <cuda.h>
@@ -237,6 +237,19 @@ __device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
   uint32_t lo;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
   return lo & 0xffffe000u;
+}
+
+// component i of v
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// x split, its hi and lo stored as 16 bytes each
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, float4 x) {
+  const uint4 h = make_uint4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) =
+      make_uint4(tf32_lo(x.x, h.x), tf32_lo(x.y, h.y), tf32_lo(x.z, h.z), tf32_lo(x.w, h.w));
 }
 
 // A K-major TF32 operand tile of R rows x K columns without swizzle, as

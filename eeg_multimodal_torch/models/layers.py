@@ -47,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import gemm
 from ..utils.seeding import grouped
 from ..utils.trees import tree_map
 
@@ -107,13 +108,20 @@ def linear(params, x):
     m-th of M equal groups of x's rows, (N, in) or (N, S, in), through kernel
     m: x viewed as (M, N / M * S, in), one batched GEMM. M = B is the DP-SGD
     step's per-example leaves (``dp/dpsgd.py``), M members the sweep's
-    (``train/sweep.py``)."""
+    (``train/sweep.py``).
+
+    On the card a large f32 product with a 2-D kernel goes to the f32
+    tensor-core GEMM (``ops/gemm.py``, 3xTF32 with f32 accuracy), its
+    gradients too; :func:`gemm.takes` decides from x's and the kernel's
+    dtype, device, rank and shape alone. Every other product is cuBLAS's."""
     dt = torch.promote_types(x.dtype, params["kernel"].dtype)
     kernel, bias = params["kernel"].to(dt), params["bias"].to(dt)
     if kernel.dim() == 3:
         M = kernel.shape[0]
         y = torch.baddbmm(bias.unsqueeze(1), x.to(dt).reshape(M, -1, x.shape[-1]), kernel)
         return y.reshape(*x.shape[:-1], kernel.shape[-1]).to(x.dtype)
+    if gemm.takes(x, kernel, bias):
+        return gemm.linear_f32(x, kernel, bias)
     return F.linear(x.to(dt), kernel.t(), bias).to(x.dtype)
 
 
