@@ -1,6 +1,6 @@
-"""attn_roofline.eval: BERT's attention calls' bound, max(operations / peak,
-bytes / bandwidth) at the cell's shapes, over the device time of the
-attention kernels in the profiled span, in percent."""
+"""attn_roofline.eval: the text encoder's attention calls' bound,
+max(operations / peak, bytes / bandwidth) at the cell's shapes, over the
+device time of the attention kernels in the profiled span, in percent."""
 from . import attn_kernels
 
 

@@ -1,6 +1,6 @@
-"""attn_roofline.train: BERT's attention calls' bound, max(operations / peak,
-bytes / bandwidth) at the cell's shapes, over the device time of the
-attention kernels in the profiled span, in percent."""
+"""attn_roofline.train: the text encoder's attention calls' bound,
+max(operations / peak, bytes / bandwidth) at the cell's shapes, over the
+device time of the attention kernels in the profiled span, in percent."""
 from . import attn_kernels
 
 

@@ -1,6 +1,7 @@
 """Operations and bytes of the work a configured step defines, counted from
 the model's structure (never from the implementation's launches), and the
-card's peaks.
+card's peaks. The text encoder's products and attention calls are its
+part's (``reference/encoders/<model_type>.py``); the rest are counted here.
 
 A product is (count, m, k, n, part): ``count`` (m x k) @ (k x n) products,
 2 count m k n operations, reading count (m k + k n) and writing count m n
@@ -21,9 +22,12 @@ from __future__ import annotations
 import json
 import os
 
-# parts of the model: BERT's dense layers, its attention, the act encoder,
-# the decoder, the head
-BERT, ATTN, VISUAL, DECODER, HEAD = "bert", "attn", "visual", "decoder", "head"
+from ..reference import encoders
+from ..reference.encoders import ATTN, ENCODER
+
+# parts of the model beside the encoder's dense products (ENCODER) and its
+# attention (ATTN): the act encoder, the decoder, the head
+VISUAL, DECODER, HEAD = "visual", "decoder", "head"
 
 with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "peaks.json")) as _f:
     PEAKS = json.load(_f)
@@ -39,19 +43,14 @@ def peak_flops(dtype: str) -> float:
 def forward_products(cfg: dict, S: int, rows: int):
     """The products of one forward over ``rows`` rows at sequence length
     ``S``."""
-    H, I = cfg["hidden_size"], cfg["intermediate_size"]
-    nh = cfg["num_attention_heads"]
-    D = H // nh
+    enc = encoders.of(cfg)
+    H = enc.width(cfg)
     fz = cfg["fusion"]
     F, C, Vin, Fd = fz["feature_width"], fz["classes"], fz["visual_in"], fz["cross_ffn"]
     ch = fz["cross_heads"]
     Dc = H // ch
     t = rows * S
-    out = []
-    for _ in range(cfg["num_hidden_layers"]):
-        out += [(1, t, H, H, BERT)] * 4 + [(1, t, H, I, BERT), (1, t, I, H, BERT)]
-        out += [(rows * nh, S, D, S, ATTN), (rows * nh, S, S, D, ATTN)]
-    out.append((1, rows, H, H, BERT))  # the pooler, on [CLS]
+    out = enc.products(cfg, S, rows)
     out.append((1, rows, Vin, H, VISUAL))
     for _ in range(fz["cross_layers"]):
         # self-attention over the one act token
@@ -92,10 +91,10 @@ def eval_flops(cfg: dict, S: int, rows: int) -> float:
 
 
 def element_bytes(cfg: dict, part: str) -> int:
-    """Bytes of an operand of ``part`` in the program's compute dtype: BERT
-    runs in it; the act encoder, the decoder (its query is the f32 act
-    stream) and the head compute in f32."""
-    if part in (BERT, ATTN) and cfg["program"]["compute_dtype"] == "bfloat16":
+    """Bytes of an operand of ``part`` in the program's compute dtype: the
+    text encoder runs in it; the act encoder, the decoder (its query is the
+    f32 act stream) and the head compute in f32."""
+    if part in (ENCODER, ATTN) and cfg["program"]["compute_dtype"] == "bfloat16":
         return 2
     return 4
 
@@ -111,9 +110,10 @@ def product_bound_s(cfg: dict, product) -> float:
 
 
 def attention_calls(cfg: dict, train: bool):
-    """(forward calls, backward calls) of BERT's attention kernels for one
-    step (two forwards, phase 2's backward) or one eval forward."""
-    L = cfg["num_hidden_layers"]
+    """(forward calls, backward calls) of the text encoder's attention
+    kernels for one step (two forwards, phase 2's backward) or one eval
+    forward."""
+    L = encoders.of(cfg).attention(cfg)["calls"]
     return (2 * L, L) if train else (L, 0)
 
 
@@ -123,14 +123,17 @@ def attention_bound_s(cfg: dict, S: int, rows: int, forward: bool) -> float:
     bias and writing the output and each row's softmax statistics (max and
     sum); the backward's four (dV, dP, dQ, dK), reading q, k, v, the output,
     its gradient, the statistics and the bias and writing dQ, dK, dV."""
-    H, nh = cfg["hidden_size"], cfg["num_attention_heads"]
+    a = encoders.of(cfg).attention(cfg)
+    nh = a["heads"]
     es = element_bytes(cfg, ATTN)
     dtype = "bfloat16" if es == 2 else "float32"
-    act = rows * S * H * es
+    qk = rows * S * nh * a["qk"] * es  # q, k, dQ or dK
+    v = rows * S * nh * a["v"] * es  # v, the output, its gradient or dV
     stats = 2 * rows * nh * S * 4
     bias = rows * S * 4
+    ops = 2 * rows * nh * S * S * (a["qk"] + a["v"])
     if forward:
-        ops, nbytes = 4 * rows * S * S * H, 4 * act + stats + bias
+        nbytes = 2 * qk + 2 * v + stats + bias
     else:
-        ops, nbytes = 8 * rows * S * S * H, 8 * act + stats + bias
+        ops, nbytes = 2 * ops, 4 * qk + 4 * v + stats + bias
     return max(ops / peak_flops(dtype), nbytes / PEAKS["bytes_per_s"])

@@ -1,7 +1,7 @@
-"""gemm_roofline.train: the bound of the step's products outside BERT's
-attention (each max(operations / peak of its dtype, bytes / bandwidth),
-counted by ``counts``) over the device time of the GEMM kernels (cuBLAS's,
-by the name patterns below) in the profiled span, in percent."""
+"""gemm_roofline.train: the bound of the step's products outside the text
+encoder's attention (each max(operations / peak of its dtype, bytes /
+bandwidth), counted by ``counts``) over the device time of the GEMM kernels
+(cuBLAS's, by the name patterns below) in the profiled span, in percent."""
 import re
 
 from . import counts

@@ -3,25 +3,24 @@
 A frozen copy of ``eeg_multimodal_torch/bench.py::configure`` (rows
 truncated to the longest valid row rounded up to 16, the compact vocab,
 the ``FusionConfig`` and ``TrainConfig`` of the configuration), driven by
-the configuration file instead of environment switches. The weights are
-the benchmark's (``reference/weights.py``), made on the device from the seed
-and handed to the program; a compact vocab takes the rows of the word table
-it keeps.
+the configuration file instead of environment switches. The text encoder's
+settings, widths and word table are its part's (``encoders/<model_type>.py``).
+The weights are the benchmark's (``reference/weights.py``), made on the
+device from the seed and handed to the program; a compact vocab takes the
+rows of the word table it keeps.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from eeg_multimodal_torch.data import datasets as D
 from eeg_multimodal_torch.data.compact_vocab import build_compact_vocab, remap_pairing
 from eeg_multimodal_torch.models import fusion
-from eeg_multimodal_torch.models import layers as L
-from eeg_multimodal_torch.models.bert import BertConfig
 from eeg_multimodal_torch.train.trainer import TrainConfig
 
+from . import encoders
 from . import rows as R
+from .reference import encoders as ref_encoders
 from .reference.weights import make_weights
 
 
@@ -39,9 +38,7 @@ class Program:
         compact vocab's rows where the program keeps one."""
         params = make_weights(cfg, seed, device)
         if self.vocab is not None:
-            emb = params["bert"]["embeddings"]
-            keep = torch.as_tensor(self.vocab.new_to_old, dtype=torch.int64, device=device)
-            emb["word"] = emb["word"].index_select(0, keep)
+            params = encoders.of(cfg).cut_to_vocab(params, self.vocab, device)
         return params
 
 
@@ -52,43 +49,23 @@ def _pairing(split):
                            act_img=split["act"])
 
 
-def check_widths(cfg):
-    """Raise unless the program's fixed widths are the configuration's."""
-    fz = cfg["fusion"]
-    fixed = {"hidden_size": fusion.D_MODEL, "cross_heads": fusion.N_HEADS,
-             "cross_layers": fusion.N_CROSS_LAYERS, "cross_ffn": L.FFN_DIM,
-             "visual_in": fusion.VISUAL_IN, "classes": fusion.N_CLASSES,
-             "feature_width": 3 * fusion.D_MODEL}
-    for key, value in fixed.items():
-        got = cfg[key] if key in cfg else fz[key]
-        if got != value:
-            raise ValueError(f"configuration {key}={got}, the program runs {value}")
-
-
 def build(cfg: dict, traffic: dict, seed: int) -> Program:
-    check_widths(cfg)
-    train_rows, test_rows = R.make_rows(seed, traffic)
+    enc = encoders.of(cfg)
+    enc.check_widths(cfg)
+    train_rows, test_rows = R.make_rows(seed, traffic, ref_encoders.of(cfg).TOKENS)
     train, test = _pairing(train_rows), _pairing(test_rows)
     if traffic["truncate"]:
         train, test = D.truncate_pair(train, test)
-    bert = BertConfig(
-        vocab_size=cfg["vocab_size"], hidden_size=cfg["hidden_size"],
-        num_layers=cfg["num_hidden_layers"], num_heads=cfg["num_attention_heads"],
-        intermediate_size=cfg["intermediate_size"],
-        max_position_embeddings=cfg["max_position_embeddings"],
-        type_vocab_size=cfg["type_vocab_size"], layer_norm_eps=cfg["layer_norm_eps"],
-        hidden_dropout=cfg["hidden_dropout_prob"],
-        attention_dropout=cfg["attention_probs_dropout_prob"],
-        initializer_range=cfg["initializer_range"])
     prog = cfg["program"]
-    vocab = None
+    vocab, vocab_size = None, cfg["vocab_size"]
     if prog["compact_vocab"]:
         vocab = build_compact_vocab([train.eeg_input, test.eeg_input], cfg["vocab_size"])
         train, test = remap_pairing(train, vocab), remap_pairing(test, vocab)
-        bert = dataclasses.replace(bert, vocab_size=vocab.size)
+        vocab_size = vocab.size
     fz = cfg["fusion"]
     fc = dataclasses.replace(fusion.config_for(fz["multimodal_type"], fz["dp_mode"]),
-                             bert_config=bert, fused_dp_kernel=prog["fused_dp_kernel"])
+                             fused_dp_kernel=prog["fused_dp_kernel"],
+                             **enc.fusion_settings(cfg, vocab_size))
     tr = cfg["train"]
     tc = TrainConfig(batch_size=tr["batch_size"], learning_rate=tr["learning_rate"], seed=seed,
                      compute_dtype=prog["compute_dtype"], adam_mu_dtype=prog["adam_mu_dtype"],

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from .. import rows as R
+from . import encoders
 from .draws import Draws, epoch_generator, epoch_order
 from .model import Precision, Stepper, eval_logits
 from .weights import leaves, make_weights
@@ -21,7 +22,7 @@ def _tensors(split, S, device):
 
 def inputs(cfg, traffic, seed, device):
     """(train rows, eval rows) on ``device``, at the run's sequence length."""
-    train, test = R.make_rows(seed, traffic)
+    train, test = R.make_rows(seed, traffic, encoders.of(cfg).TOKENS)
     S = R.seq_len(train, test, traffic["truncate"])
     return _tensors(train, S, device), _tensors(test, S, device)
 

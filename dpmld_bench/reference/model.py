@@ -1,21 +1,21 @@
 """The plain reference: TICA_LapDropout's forward, loss, alternating step
 and eval, in plain PyTorch.
 
-It follows the published description and the reference code (Rachfu/
-EEG-multimodal ``models.py:28-82``, ``base_train.py:167-255``), not the
-program: BERT-base with HF ``BertModel`` semantics (post-LN, erf GELU, the
-additive mask ``(1 - m) * finfo(f32).min``, a tanh pooler) over the EEG
-tokens; a linear act encoder; ``nn.TransformerDecoder`` (3 post-LN layers,
-ReLU FFN of 2048, key-padding masks at -inf) with the act stream as target
-and the EEG sequence as memory; the concat of the pooled EEG feature, the
-act feature and the decoder's mean; row min-max; the learned Laplace block
-``norm + Laplace(0, 1) / log((e^eps - w) / (1 - w))``, ``w = sigmoid(DP)``
-(the Gumbel mask of the reference's block is an exact identity and is left
-out); fc1 (ReLU), fc2 (tanh), the classifier; cross-entropy weighted over
-the batch's real rows. The step: phase 1 the gradient w.r.t. ``DP`` alone
-(hard=False) and Adam on it, phase 2 the gradient w.r.t. every other
-parameter (hard=True) and Adam; the eval: dropout off, the DP noise on,
-argmax votes and binary F1.
+It follows the published description and the reference code
+(Rachfu/EEG-multimodal ``models.py:28-82``, ``base_train.py:167-255``), not
+the program: the configuration's text encoder over the EEG tokens (its part
+in ``encoders/<model_type>.py``; BERT-base, ``encoders/bert.py``, for
+TICA_LapDropout); a linear act encoder; ``nn.TransformerDecoder`` (3 post-LN
+layers, ReLU FFN of 2048, key-padding masks at -inf) with the act stream as
+target and the EEG sequence as memory; the concat of the pooled EEG feature,
+the act feature and the decoder's mean; row min-max; the learned Laplace
+block ``norm + Laplace(0, 1) / log((e^eps - w) / (1 - w))``,
+``w = sigmoid(DP)`` (the Gumbel mask of the reference's block is an exact
+identity and is left out); fc1 (ReLU), fc2 (tanh), the classifier; cross-entropy
+weighted over the batch's real rows. The step: phase 1 the gradient w.r.t.
+``DP`` alone (hard=False) and Adam on it, phase 2 the gradient w.r.t. every
+other parameter (hard=True) and Adam; the eval: dropout off, the DP noise
+on, argmax votes and binary F1.
 
 Every product goes through :class:`Precision`: float32 with TF32 off (the
 reference's own numerics), or one step lower for the control (TF32, or
@@ -30,9 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import encoders
 from .weights import leaves
-
-F32_MIN = torch.finfo(torch.float32).min
 
 
 class _Fp8Matmul(torch.autograd.Function):
@@ -95,36 +94,6 @@ def layer_norm(p, x, eps):
     return F.layer_norm(x, x.shape[-1:], p["scale"], p["bias"], eps)
 
 
-def bert(p, ids, mask, cfg, draws, prec):
-    """(sequence output, pooled output) of HF ``BertModel``."""
-    B, S = ids.shape
-    H, nh = cfg["hidden_size"], cfg["num_attention_heads"]
-    D = H // nh
-    eps = cfg["layer_norm_eps"]
-    emb = p["embeddings"]
-    x = emb["word"][ids] + emb["position"][:S][None] + emb["token_type"][0]
-    x = draws.dropout(layer_norm(emb["ln"], x, eps))
-    bias = (1.0 - mask[:, None, None, :].float()) * F32_MIN
-
-    def heads(t):
-        return t.reshape(B, S, nh, D).transpose(1, 2)
-
-    for layer in p["layers"]:
-        a = layer["attn"]
-        q, k, v = (heads(linear(a[n], x, prec)) for n in ("query", "key", "value"))
-        probs = torch.softmax(prec.matmul(q, k.transpose(-1, -2)) / math.sqrt(D) + bias, -1)
-        keep = draws.attention_keep(B, nh, S)
-        if keep is not None:
-            rate = draws.attn_p
-            probs = torch.where(keep, probs / (1.0 - rate), torch.zeros((), device=x.device))
-        ctx = prec.matmul(probs, v).transpose(1, 2).reshape(B, S, H)
-        x = layer_norm(a["ln"], x + draws.dropout(linear(a["output"], ctx, prec)), eps)
-        f = layer["ffn"]
-        h = F.gelu(linear(f["intermediate"], x, prec))
-        x = layer_norm(f["ln"], x + draws.dropout(linear(f["output"], h, prec)), eps)
-    return x, torch.tanh(linear(p["pooler"], x[:, 0], prec))
-
-
 def mha(p, query, kv, heads, kpm, draws, prec):
     """``nn.MultiheadAttention`` (batch first, key padding mask True where a
     key is ignored)."""
@@ -162,8 +131,10 @@ def forward(p, batch, cfg, epsilon: float, draws, prec):
     """The logits (B, 2) of ``batch`` (``input_ids``, ``attention_mask``,
     ``act`` (B, 512))."""
     fz = cfg["fusion"]
-    seq, pooled = bert(p["bert"], batch["input_ids"], batch["attention_mask"], cfg, draws, prec)
-    act = linear(p["visual_encoder"], batch["act"][:, None, :], prec)  # (B, 1, 768)
+    enc = encoders.of(cfg)
+    seq, pooled = enc.forward(p[enc.KEY], batch["input_ids"], batch["attention_mask"], cfg,
+                              draws, prec)
+    act = linear(p["visual_encoder"], batch["act"][:, None, :], prec)  # (B, 1, width)
     act_kpm = torch.zeros(act.shape[:2], dtype=torch.bool, device=act.device)
     cross = decoder(p["cross"], act, seq, fz["cross_heads"], act_kpm,
                     batch["attention_mask"] == 0, draws, prec).mean(1)

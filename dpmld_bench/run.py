@@ -7,13 +7,16 @@ From the root of a checkout. The cell names a configuration
 (``dpmld_bench/traffic/<name>.json``, whose ``driver`` names
 ``dpmld_bench/drivers/<driver>.py``); its limits are
 ``dpmld_bench/limits/<cell>.json``, and each metric is read by
-``dpmld_bench/metrics/<metric>.py``. Set-up builds the rows and weights
-from the seed, the program's step object, and drives its first steps; the
-window runs for ``--seconds``; with ``--trace 1`` a profiled span follows
-it. Then the program's state is freed and the plain reference follows the
-timed path's first steps (or a sample of the eval epochs) from the seed,
-and each compared number is printed beside its limit: as the last lines on
-standard error, and as the result line's last key.
+``dpmld_bench/metrics/<metric>.py``. The configuration's ``model_type``
+names its text encoder's two parts, ``dpmld_bench/encoders/<model_type>.py``
+(the program's) and ``dpmld_bench/reference/encoders/<model_type>.py``.
+Set-up builds the rows and weights from the seed, the program's step
+object, and drives its first steps; the window runs for ``--seconds``;
+with ``--trace 1`` a profiled span follows it. Then the program's state is
+freed and the plain reference follows the timed path's first steps (or a
+sample of the eval epochs) from the seed, and each compared number is
+printed beside its limit: as the last lines on standard error, and as the
+result line's last key.
 
 Exits non-zero without a result when no CUDA card is present, or when a
 module of JAX or of the JAX package is loaded once the window has closed.
@@ -76,14 +79,34 @@ def reader(metric: str):
     return mod
 
 
+def encoder_parts(model_type: str):
+    """The program's and the reference's part of the text encoder
+    ``model_type`` (``dpmld_bench/encoders/<model_type>.py`` and
+    ``dpmld_bench/reference/encoders/<model_type>.py``), loaded once a
+    process; the shared code takes them by the configuration's
+    ``model_type`` from then on."""
+    from .encoders import part
+    from .reference.encoders import part as reference_part
+
+    try:
+        return part(model_type), reference_part(model_type)
+    except LookupError:
+        raise SystemExit(
+            f"no text encoder part for model_type {model_type!r}: looked for "
+            f"dpmld_bench/encoders/{model_type}.py and "
+            f"dpmld_bench/reference/encoders/{model_type}.py") from None
+
+
 def cell_spec(workload: str):
-    """(BENCHMARK.json, the cell, its configuration, traffic and limits)."""
+    """(BENCHMARK.json, the cell, its configuration, traffic and limits),
+    once the configuration's text encoder has both its parts."""
     bench = load_json(ROOT, "BENCHMARK.json")
     cell = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if cell is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     cfg = load_json(ROOT, conf["file"])
+    encoder_parts(cfg["model_type"])
     traffic = load_json(HERE, "traffic", cell["traffic"] + ".json")
     limits = load_json(HERE, "limits", workload + ".json")
     return bench, cell, cfg, traffic, limits

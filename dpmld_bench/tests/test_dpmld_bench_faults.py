@@ -7,7 +7,7 @@ import torch
 
 from dpmld_bench import calibrate, run
 
-TRAIN = ["tica_bf16.train_s80", "tica_f32.train_s512", "tica_bf16.sweep5_s80"]
+TRAIN = ["tica_f32.train_s512", "tica_bf16.sweep5_s80", "tica_f32.sweep5_s80"]
 CASES = ([(c, f) for c in TRAIN for f in ("unchanged", "half_batch", "altered")]
          + [("tica_bf16.eval_s80", f) for f in ("half_batch", "altered")])
 

@@ -39,23 +39,27 @@ def test_the_harness_loads_no_jax():
                          "dpmld_bench.trace, dpmld_bench.drivers.train, "
                          "dpmld_bench.drivers.eval\n"
                          "from dpmld_bench import run\n"
-                         "[run.reader(m) for m in ('mfu.train', 'attn_roofline.eval')]")
+                         "[run.reader(m) for m in ('mfu.train', 'attn_roofline.eval')]\n"
+                         "run.encoder_parts('bert')")
     assert "eeg_multimodal_torch" in names  # the program is what is measured
     assert not names & JAX
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    names = loaded_after("import dpmld_bench.reference.follow, dpmld_bench.reference.check")
+    names = loaded_after("import dpmld_bench.reference.follow, dpmld_bench.reference.check\n"
+                         "from dpmld_bench.reference import encoders\n"
+                         "encoders.part('bert')")
     assert not names & (JAX | {"eeg_multimodal_torch"})
 
 
-@pytest.mark.parametrize("folder", ["", "reference", "drivers", "metrics", "tests"])
+@pytest.mark.parametrize("folder", ["", "reference", "reference/encoders", "encoders", "drivers",
+                                    "metrics", "tests"])
 def test_no_source_imports_jax(folder):
     for name in sorted(os.listdir(os.path.join(BENCH, folder))):
         if name.endswith(".py"):
             imported = imported_names(os.path.join(BENCH, folder, name))
             assert not imported & JAX, (folder, name)
-            if folder == "reference":
+            if folder.startswith("reference"):
                 assert "eeg_multimodal_torch" not in imported, name
 
 

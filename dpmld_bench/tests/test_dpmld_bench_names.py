@@ -54,8 +54,11 @@ def test_config_files(conf):
     assert conf["file"].startswith("dpmld_bench/configs/") and conf["reduced"] == []
     with open(os.path.join(ROOT, conf["file"])) as f:
         cfg = json.load(f)
-    assert (cfg["hidden_size"], cfg["num_hidden_layers"], cfg["num_attention_heads"],
-            cfg["intermediate_size"], cfg["vocab_size"]) == (768, 12, 12, 3072, 30522)
+    program_part, _ = run.encoder_parts(cfg["model_type"])
+    program_part.check_widths(cfg)
+    if cfg["model_type"] == "bert":  # BERT-base's published sizes
+        assert (cfg["hidden_size"], cfg["num_hidden_layers"], cfg["num_attention_heads"],
+                cfg["intermediate_size"], cfg["vocab_size"]) == (768, 12, 12, 3072, 30522)
     assert any(c["config"] == conf["name"] for c in BENCH["workloads"])
 
 
