@@ -10,7 +10,12 @@ A program part holds:
   up the port's encoder from the configuration, at ``vocab_size`` word ids
   (the compact vocab's where the program keeps one);
 - ``cut_to_vocab(params, vocab, device)``: the run's weights with the
-  encoder's word table cut to the compact vocab's rows.
+  encoder's word table cut to the compact vocab's rows;
+- optionally ``counters()``: the program's counters of this encoder (a dict
+  of name to number, such as the rows routed to the experts held here),
+  read just before and just after a traced run's profiled span; the readers
+  find the change over the span as ``ctx["counters"]``, which is {} for a
+  part that defines none.
 """
 from __future__ import annotations
 

@@ -122,8 +122,11 @@ def attention_bound_s(cfg: dict, S: int, rows: int, forward: bool) -> float:
     ``rows`` rows: the forward's two products, reading q, k, v and the key
     bias and writing the output and each row's softmax statistics (max and
     sum); the backward's four (dV, dP, dQ, dK), reading q, k, v, the output,
-    its gradient, the statistics and the bias and writing dQ, dK, dV."""
+    its gradient, the statistics and the bias and writing dQ, dK, dV. A
+    causal part's products count the S (S + 1) / 2 query-key pairs of a
+    causal kernel, an other's all S x S."""
     a = encoders.of(cfg).attention(cfg)
+    pairs = S * (S + 1) // 2 if a.get("causal") else S * S
     nh = a["heads"]
     es = element_bytes(cfg, ATTN)
     dtype = "bfloat16" if es == 2 else "float32"
@@ -131,7 +134,7 @@ def attention_bound_s(cfg: dict, S: int, rows: int, forward: bool) -> float:
     v = rows * S * nh * a["v"] * es  # v, the output, its gradient or dV
     stats = 2 * rows * nh * S * 4
     bias = rows * S * 4
-    ops = 2 * rows * nh * S * S * (a["qk"] + a["v"])
+    ops = 2 * rows * nh * pairs * (a["qk"] + a["v"])
     if forward:
         nbytes = 2 * qk + 2 * v + stats + bias
     else:

@@ -24,9 +24,29 @@ A reference part holds:
   (B, S, width), the pooled output (B, width));
 - ``products(cfg, S, rows)``: the products of one forward over ``rows``
   rows, each (count, m, k, n, part), ``part`` :data:`ENCODER` or
-  :data:`ATTN`;
+  :data:`ATTN`, as the reference computes them. Routed experts count at
+  the expected load: the experts held here take tokens x experts a token
+  takes x held / routed of the ``rows * S`` tokens' rows, so that the
+  counts stay a function of the model's structure (the real load is the
+  program part's counter to read);
 - ``attention(cfg)``: a forward's attention calls: ``calls``, and each
-  call's ``heads`` and their ``qk`` and ``v`` widths.
+  call's ``heads`` and their ``qk`` and ``v`` widths; ``causal``: True
+  where each query attends only to the keys up to its own position, so
+  that ``counts.attention_bound_s`` counts the S (S + 1) / 2 query-key
+  pairs a causal kernel computes in place of S x S.
+
+It may also hold:
+
+- ``cuts(published)``: the counts that a configuration of this architecture
+  may cut to one chip's share (experts held, layers, rows of the
+  vocabulary; never a width), each with the least it may keep, from the
+  published configuration: of the layers, the leading dense ones and after
+  them a whole period of the layer pattern and no fewer than four; 8
+  routed experts; an eighth of the vocabulary. ``run.check_config`` refuses every other
+  cut; a part without ``cuts``, as ``bert``, lets none;
+- ``tiny(cfg)``: the configuration cut in place to what the CPU tests run
+  (``tests/conftest.py``'s ``tiny``), where one layer of the encoder,
+  the default, is not enough to hold each kind of its layers.
 """
 from __future__ import annotations
 

@@ -12,9 +12,10 @@ names its text encoder's two parts, ``dpmld_bench/encoders/<model_type>.py``
 (the program's) and ``dpmld_bench/reference/encoders/<model_type>.py``.
 Set-up builds the rows and weights from the seed, the program's step
 object, and drives its first steps; the window runs for ``--seconds``;
-with ``--trace 1`` a profiled span follows it. Then the program's state is
-freed and the plain reference follows the timed path's first steps (or a
-sample of the eval epochs) from the seed, and each compared number is
+with ``--trace 1`` a profiled span follows it, and the encoder part's
+``counters()``, where it has them, are read around it. Then the program's
+state is freed and the plain reference follows the timed path's first steps
+(or a sample of the eval epochs) from the seed, and each compared number is
 printed beside its limit: as the last lines on standard error, and as the
 result line's last key.
 
@@ -97,16 +98,57 @@ def encoder_parts(model_type: str):
             f"dpmld_bench/reference/encoders/{model_type}.py") from None
 
 
+def check_config(conf: dict, cfg: dict):
+    """Raise ValueError unless the configuration ``conf`` of BENCHMARK.json
+    and its file ``cfg`` keep to the contract. A cut configuration lists in
+    ``reduced`` exactly the keys of the file's ``published`` (each key's
+    published value) and states its ``deployment`` (how many chips share a
+    layer, how it is divided, which share this chip holds); an uncut one
+    has neither. Each cut key is one of the counts that the reference part's
+    ``cuts`` lets change (a part without it lets none), cut to a whole
+    number from its floor there to below the published value. The text
+    encoder's two parts exist and the program runs the file's widths."""
+    if set(conf) != {"name", "source", "file", "reduced", "why"}:
+        raise ValueError(f"configuration {conf.get('name')!r}: keys {sorted(conf)}")
+    if not conf["file"].startswith("dpmld_bench/configs/"):
+        raise ValueError(f"configuration file {conf['file']!r} is not under dpmld_bench/configs/")
+    reduced, published = conf["reduced"], cfg.get("published", {})
+    if len(set(reduced)) != len(reduced) or set(reduced) != set(published):
+        raise ValueError(f"reduced {sorted(reduced)} is not the keys of the file's published "
+                         f"{sorted(published)}")
+    deployment = cfg.get("deployment")
+    if bool(reduced) != (deployment is not None):
+        raise ValueError("a cut configuration states its deployment, and only a cut one")
+    if deployment is not None and (not isinstance(deployment, str)
+                                   or not 1 <= len(deployment) <= 200 or "\n" in deployment):
+        raise ValueError("deployment is one line of 1 to 200 characters")
+    model_type = cfg["model_type"]
+    program_part, reference_part = encoder_parts(model_type)
+    cuts = getattr(reference_part, "cuts", None)
+    floors = cuts({**cfg, **published}) if cuts and reduced else {}
+    for key in reduced:
+        if key not in floors:
+            raise ValueError(f"reduced key {key!r} is not a count that the {model_type!r} "
+                             f"part lets a cut change ({sorted(floors)})")
+        if key not in cfg:
+            raise ValueError(f"reduced key {key!r} is not in the configuration file")
+        value, full = cfg[key], published[key]
+        if not all(type(v) is int for v in (value, full)) or not floors[key] <= value < full:
+            raise ValueError(f"reduced key {key!r}: {value!r} is not a whole number from the "
+                             f"floor {floors[key]!r} to below the published {full!r}")
+    program_part.check_widths(cfg)
+
+
 def cell_spec(workload: str):
     """(BENCHMARK.json, the cell, its configuration, traffic and limits),
-    once the configuration's text encoder has both its parts."""
+    once the configuration keeps to the contract (``check_config``)."""
     bench = load_json(ROOT, "BENCHMARK.json")
     cell = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if cell is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     cfg = load_json(ROOT, conf["file"])
-    encoder_parts(cfg["model_type"])
+    check_config(conf, cfg)
     traffic = load_json(HERE, "traffic", cell["traffic"] + ".json")
     limits = load_json(HERE, "limits", workload + ".json")
     return bench, cell, cfg, traffic, limits
@@ -129,7 +171,7 @@ def run_cell(workload, seed, seconds, trace, device, start=None, edit=None):
     tests' small sizes)."""
     import torch
 
-    from . import drivers, program
+    from . import drivers, encoders, program
     from . import trace as tracing
     from .reference.check import judge
 
@@ -153,25 +195,29 @@ def run_cell(workload, seed, seconds, trace, device, start=None, edit=None):
     window = driver.window(seconds)
     attempted, failed = driver.attempts()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    span = None
+    span, counters = None, {}
     if trace:
         sp = driver.span(traffic["span_steps"] if "span_steps" in traffic
                          else traffic["span_epochs"])
-        span = tracing.profile(sp["run"], device)
+        span = tracing.profile(sp["run"], device, getattr(encoders.of(cfg), "counters", dict))
+        counters = span.pop("counters")
         span["steps"] = sp["steps"]
         slow = (span["wall_s"] / sp["steps"]) / (window["seconds"] / window["steps"])
         print(f"trace: the span's wall time a step is {slow!r} times the window's",
               file=sys.stderr)
+        print(f"trace: the program's spans hold {span['program']['coverage']!r} of the "
+              f"span's device time", file=sys.stderr)
     bad = forbidden_modules()
     if bad:
         raise SystemExit(f"modules of JAX or the JAX package loaded: {bad}")
     driver.release()
     numbers = driver.check()
     correct, lines = judge(numbers, limits)
-    # what the readers read; ``span`` is None in an untraced run
+    # what the readers read; ``span`` is None and ``counters`` {} in an
+    # untraced run
     ctx = dict(cell=cell, config=cfg, traffic=traffic, seq_len=prog.seq_len,
                members=len(traffic["epsilons"]), kind=traffic["driver"], setup_s=setup_s,
-               window=window, span=span)
+               window=window, span=span, counters=counters)
     metrics = {}
     for m in metrics_of(bench, cell, trace):
         value = reader(m["name"]).read(ctx)

@@ -21,9 +21,10 @@ the layer that caused it. Every time is on the profiler's one clock.
 ``reduce`` gives, by span name and by layer, the device ms, launches, host
 self ms (a span's time less its child spans') and idle ms over the profiled
 span, and the share of the device time put down to some span (coverage).
-``trace.summarize`` does not call it, so no metric of a run reads it: hand
-it a profiled span's ``prof.events()``, the span's bounds, ``trace.LAUNCHES``
-and the device's idle intervals in the span.
+``trace.summarize`` hands it a profiled span's ``prof.events()``, the span's
+bounds, ``trace.LAUNCHES`` and the device's idle intervals in the span, and
+the readers find the result as ``ctx["span"]["program"]``
+(``metrics/program_spans.py``).
 """
 from __future__ import annotations
 

@@ -3,6 +3,8 @@ the checkout's root. Tests marked ``card`` need a CUDA card and skip
 without one; the fixture decides, never the import."""
 import pytest
 
+from dpmld_bench.reference import encoders
+
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
@@ -18,7 +20,11 @@ def card():
 
 
 def _tiny(cfg, traffic):
-    cfg["num_hidden_layers"] = 1
+    part = encoders.of(cfg)
+    if hasattr(part, "tiny"):
+        part.tiny(cfg)
+    else:
+        cfg["num_hidden_layers"] = 1
     small = dict(n_train=24, n_eval=10, valid_tokens=[6, 13], truncate=True, warmup_steps=4,
                  warmup_epochs=1, span_steps=2, span_epochs=2)
     traffic.update({k: v for k, v in small.items() if k in traffic})
@@ -26,7 +32,8 @@ def _tiny(cfg, traffic):
 
 @pytest.fixture
 def tiny():
-    """An edit of a cell's specs to small sizes for the CPU: one BERT layer,
-    24 / 10 rows of 6-13 tokens (S = 16), few warm-up steps; every width as
-    published."""
+    """An edit of a cell's specs to small sizes for the CPU: the encoder cut
+    by its reference part's ``tiny(cfg)``, or to one layer where it has none
+    (BERT's), 24 / 10 rows of 6-13 tokens (S = 16), few warm-up steps; every
+    width as published."""
     return _tiny

@@ -1,13 +1,12 @@
 """The control, the reference in the program's place one precision step
 below the configuration's (TF32 for tica_f32, float8 for tica_bf16), comes
 out not correct against the committed limits: on the card, at the cells'
-own sizes, on three seeds."""
+own sizes, on three seeds; every cell of BENCHMARK.json."""
 import pytest
 
-from dpmld_bench import calibrate
+from dpmld_bench import calibrate, run
 
-CELLS = ["tica_f32.train_s512", "tica_bf16.sweep5_s80", "tica_bf16.eval_s80",
-         "tica_f32.sweep5_s80"]
+CELLS = [w["name"] for w in run.load_json(run.ROOT, "BENCHMARK.json")["workloads"]]
 
 
 @pytest.mark.card

@@ -58,7 +58,7 @@ def test_a_second_architecture_is_new_files_only(tmp_path):
     bench["workloads"].append({"name": "tica_bert2.train_s80", "config": "tica_bert2",
                                "traffic": "train_s80", "chips": 1, "why": "the new part"})
     for m in bench["end_to_end"] + bench["per_layer"]:
-        if "tica_f32.train_s512" in m.get("workloads", []):
+        if "tica_f32.sweep5_s80" in m.get("workloads", []):
             m["workloads"].append("tica_bert2.train_s80")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     after = tree_digests(copy)
@@ -87,7 +87,7 @@ def test_a_model_type_without_its_parts_stops_in_cell_spec(monkeypatch):
 
     monkeypatch.setattr(run, "load_json", other_type)
     with pytest.raises(SystemExit) as stop:
-        run.cell_spec("tica_f32.train_s512")
+        run.cell_spec("tica_f32.sweep5_s80")
     message = str(stop.value)
     assert "dpmld_bench/encoders/no_such_encoder.py" in message
     assert "dpmld_bench/reference/encoders/no_such_encoder.py" in message

@@ -1,15 +1,16 @@
 """A run with its timed path broken underneath comes out not correct: the
 harness's look for a card skipped, a whole run driven at a small size on
 the CPU with the committed limits, once for each fault the cell can have
-(one card, so no exchange between cards to leave out)."""
+(one card, so no exchange between cards to leave out). The cells are
+BENCHMARK.json's, each with the faults of its traffic's driver."""
 import pytest
 import torch
 
 from dpmld_bench import calibrate, run
 
-TRAIN = ["tica_f32.train_s512", "tica_bf16.sweep5_s80", "tica_f32.sweep5_s80"]
-CASES = ([(c, f) for c in TRAIN for f in ("unchanged", "half_batch", "altered")]
-         + [("tica_bf16.eval_s80", f) for f in ("half_batch", "altered")])
+FAULTS = {"train": ("unchanged", "half_batch", "altered"), "eval": ("half_batch", "altered")}
+CASES = [(w["name"], f) for w in run.load_json(run.ROOT, "BENCHMARK.json")["workloads"]
+         for f in FAULTS[run.load_json(run.HERE, "traffic", w["traffic"] + ".json")["driver"]]]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
@@ -27,6 +28,6 @@ def test_a_broken_timed_path_is_not_correct(tiny, cell, fault):
 
 
 def test_the_sound_f32_path_is_correct(tiny):
-    result, lines = run.run_cell("tica_f32.train_s512", 2**31 + 101, 0.2, False,
+    result, lines = run.run_cell("tica_f32.sweep5_s80", 2**31 + 101, 0.2, False,
                                  torch.device("cpu"), edit=tiny)
     assert result["correct"] is True, lines

@@ -50,12 +50,9 @@ def test_every_traffic_key_is_read(cell):
 
 @pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(conf):
-    assert set(conf) == {"name", "source", "file", "reduced", "why"}
-    assert conf["file"].startswith("dpmld_bench/configs/") and conf["reduced"] == []
     with open(os.path.join(ROOT, conf["file"])) as f:
         cfg = json.load(f)
-    program_part, _ = run.encoder_parts(cfg["model_type"])
-    program_part.check_widths(cfg)
+    run.check_config(conf, cfg)
     if cfg["model_type"] == "bert":  # BERT-base's published sizes
         assert (cfg["hidden_size"], cfg["num_hidden_layers"], cfg["num_attention_heads"],
                 cfg["intermediate_size"], cfg["vocab_size"]) == (768, 12, 12, 3072, 30522)

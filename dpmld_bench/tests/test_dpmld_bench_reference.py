@@ -26,7 +26,7 @@ def test_reference_follows_the_program_step(tiny, fused):
         edit(cfg, traffic)
         cfg["program"]["fused_dp_kernel"] = fused
 
-    result, _ = run.run_cell("tica_f32.train_s512", 2**31 + 5, 0.2, False, torch.device("cpu"),
+    result, _ = run.run_cell("tica_f32.sweep5_s80", 2**31 + 5, 0.2, False, torch.device("cpu"),
                              edit=fused_or_not)
     for name, check in result["checks"].items():
         # Adam's first steps move an element by lr * g / (|g| + eps): a

@@ -9,6 +9,10 @@ reduced to what the per-layer readers read.
 - the breakdown: the device operations that took most time, and the idle
   gaps of the device, each put to what the host was doing at its middle
   (the harness's span and the outermost operator there).
+- program: ``spans.reduce`` over the span, the device's idle intervals in
+  it as its gaps: each of the program's ``eeg.*`` spans and layers with its
+  device ms, launches, host self ms and idle ms, and the coverage;
+- counters: the change over the span of the encoder part's ``counters()``.
 
 A session that sees no device event is profiled again, up to three times,
 each time with a line on standard error.
@@ -17,9 +21,12 @@ from __future__ import annotations
 
 import bisect
 import sys
+import time
 from collections import defaultdict
 
 import torch
+
+from . import spans
 
 LAUNCHES = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
             "cudaLaunchCooperativeKernel"}
@@ -27,20 +34,31 @@ SPAN = "bench.span"
 TOP = 10
 
 
-def profile(run, device, attempts: int = 3):
+def profile(run, device, counters=dict, attempts: int = 3):
     """Run ``run()`` (which returns the rows it served) under the profiler;
-    returns the span's summary, with ``rows``."""
+    returns the span's summary with ``program``, ``rows``, and ``counters``:
+    each number of ``counters()``, read just before and just after the
+    profiled span, less its value before."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx, record_function
 
     for attempt in range(attempts):
         torch.cuda.synchronize(device)
+        before = counters()
         with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function(SPAN):
                 rows = run()
                 torch.cuda.synchronize(device)
-        summary = summarize(prof.events())
+        after = counters()
+        t0 = time.perf_counter()
+        events = prof.events()
+        t1 = time.perf_counter()
+        summary = summarize(events)
         if summary["kernels"]:
+            summary["program"] = program(events, summary["kernels"])
+            print(f"trace: the profiler's events took {t1 - t0!r} s, their summary "
+                  f"{time.perf_counter() - t1!r} s", file=sys.stderr, flush=True)
             summary["rows"] = rows
+            summary["counters"] = {k: v - before.get(k, 0) for k, v in after.items()}
             return summary
         print(f"trace: profiler session {attempt + 1} saw no device event; profiling again",
               file=sys.stderr, flush=True)
@@ -57,10 +75,21 @@ def _union(intervals):
     return merged
 
 
-def summarize(events):
+def _bounds(events):
+    """The harness's span's start and end in ``events``."""
     cpu = torch.autograd.DeviceType.CPU
     span = next(e for e in events if e.name == SPAN and e.device_type == cpu)
-    t0, t1 = span.time_range.start, span.time_range.end
+    return span.time_range.start, span.time_range.end
+
+
+def _idle(t0, t1, busy):
+    """The intervals of (t0, t1) outside the merged ``busy`` intervals."""
+    edges = [t0] + [x for iv in busy for x in iv] + [t1]
+    return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+
+
+def summarize(events):
+    t0, t1 = _bounds(events)
     kernels, launches, host_ops, marks = [], 0, [], []
     for e in events:
         start, end = e.time_range.start, e.time_range.end
@@ -84,16 +113,22 @@ def summarize(events):
     gaps = defaultdict(float)
     host_ops.sort()
     marks.sort()
-    edges = [t0] + [x for iv in busy for x in iv] + [t1]
-    for a, b in zip(edges[0::2], edges[1::2]):
-        if b > a:
-            gaps[_label((a + b) / 2, marks, host_ops)] += (b - a) * 1e-6
+    for a, b in _idle(t0, t1, busy):
+        gaps[_label((a + b) / 2, marks, host_ops)] += (b - a) * 1e-6
     return {
         "kernels": kernels, "launches": launches,
         "busy_s": sum(e - s for s, e in busy) * 1e-6, "wall_s": (t1 - t0) * 1e-6,
         "device_ops": sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP],
         "idle_gaps": sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP],
     }
+
+
+def program(events, kernels):
+    """``spans.reduce`` over the span of ``events``, with the device's idle
+    intervals between ``kernels`` (``summarize``'s) as its gaps."""
+    t0, t1 = _bounds(events)
+    busy = _union((s, e) for _, s, e in kernels)
+    return spans.reduce(events, t0, t1, LAUNCHES, _idle(t0, t1, busy))
 
 
 def _covering(t, intervals):
